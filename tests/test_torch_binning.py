@@ -1,0 +1,88 @@
+"""Port parity: pair keys, the stable pair sort and tile ranges.
+
+Both packages bin the SAME projection (the JAX outputs, handed to the
+port as tensors), so keys, sorted slots and tile starts must be
+bit-equal: single-key layout with and without the visible compaction,
+and the two-key layout (>= 4,095 tiles)."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from s3gaussian_tpu.ops import binning as jbin
+from s3gaussian_tpu.ops import project as jproject
+from s3gaussian_tpu_torch.ops import binning as tbin
+from s3gaussian_tpu_torch.ops.project import ProjectedGaussians
+
+from scenes import random_scene
+
+
+def _projected(n, seed, w, h, tile):
+    sc = random_scene(n=n, seed=seed, w=w, h=h, scale_range=(0.02, 0.3))
+    cov = jproject.build_cov3d(jnp.asarray(sc["scales"]),
+                               jnp.asarray(sc["quats"]))
+    op = jnp.asarray(sc["opacity"])
+    proj = jproject.project_gaussians(
+        jnp.asarray(sc["means"]), cov, jnp.asarray(sc["view"]),
+        jnp.asarray(sc["proj"]), sc["tanfov"], sc["tanfov"], w, h, tile,
+        tile, opacities=op)
+    tproj = ProjectedGaussians(*[torch.from_numpy(np.array(x)) for x in proj])
+    return proj, tproj, op, torch.from_numpy(np.array(op))
+
+
+@pytest.mark.parametrize("n,max_visible,w,h,tile,rect", [
+    (250, 512, 96, 64, 16, 4),     # single key, render set covers the pool
+    (250, 120, 96, 64, 16, 4),     # single key, visible compaction
+    (200, 256, 256, 256, 4, 8),    # two-key: 64x64 = 4,096 tiles
+])
+def test_pair_keys_sort_ranges_bit_equal(n, max_visible, w, h, tile, rect):
+    gx, gy = -(-w // tile), -(-h // tile)
+    proj, tproj, op, top = _projected(n, 0, w, h, tile)
+    pk = jbin.make_pair_keys(proj, gx, gy, max_visible, rect, rect, tile,
+                             tile, opacities=op)
+    tpk = tbin.make_pair_keys(tproj, gx, gy, max_visible, rect, rect, tile,
+                              tile, opacities=top)
+    assert tpk.two_key == pk.two_key == (gx * gy >= 4095)
+
+    if pk.two_key:
+        tile_j = np.asarray(pk.tile_u32).astype(np.int64)
+        tile_j[tile_j == 0xFFFFFFFF] = tbin.INVALID_TILE_TWO_KEY
+        want_keys = (tile_j << 32) | np.asarray(pk.depth_u32).astype(np.int64)
+    else:
+        want_keys = np.asarray(pk.keys).astype(np.int64)
+    np.testing.assert_array_equal(tpk.keys.numpy(), want_keys)
+    np.testing.assert_array_equal(tpk.sel.numpy(), np.asarray(pk.sel))
+    np.testing.assert_array_equal(tpk.sel_visible.numpy(),
+                                  np.asarray(pk.sel_visible))
+    for k in ("n_visible", "overflow_rect", "overflow_visible"):
+        assert int(getattr(tpk, k)) == int(getattr(pk, k)), k
+
+    m = want_keys.shape[0]
+    slot = jnp.arange(m, dtype=jnp.int32)
+    sorted_tile, (sorted_slot,) = jbin.sort_pairs(pk, (slot,))
+    t_tile, t_slot = tbin.sort_pairs(tpk)
+    np.testing.assert_array_equal(t_slot.numpy(), np.asarray(sorted_slot))
+
+    bp = m // 2                      # exercise the budget truncation too
+    for budget in (m, bp):
+        starts, n_pairs, ovf = jbin.tile_ranges(sorted_tile, gx * gy, budget)
+        t_starts, t_n, t_ovf = tbin.tile_ranges(t_tile, gx * gy, budget)
+        assert t_starts.dtype == torch.int32
+        np.testing.assert_array_equal(t_starts.numpy(), np.asarray(starts))
+        assert int(t_n) == int(n_pairs) and int(t_ovf) == int(ovf)
+    assert int(n_pairs) > 0
+
+
+def test_depth_key_bits_match_jax():
+    d = np.random.default_rng(0).uniform(0.2, 80.0, 500).astype(np.float32)
+    np.testing.assert_array_equal(
+        tbin.depth_key_bits(torch.from_numpy(d)).numpy(),
+        np.asarray(jbin.depth_key_bits(jnp.asarray(d))).astype(np.int64))
+
+
+def test_two_class_emission_raises():
+    _, tproj, _, top = _projected(50, 1, 64, 64, 16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbin.make_pair_keys(tproj, 4, 4, 64, 4, 4, 16, 16, opacities=top,
+                            big_budget=8)
