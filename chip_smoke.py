@@ -4,24 +4,31 @@ NVIDIA Hopper GPU.  Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, one line of output each (any failure exits non-zero before the
+Phases, a few lines of output each (any failure exits non-zero before the
 last line):
 
   1. the card (``nvidia-smi`` name and power limit), capability 9.0;
-  2. build the CUDA forward compositor from ``s3gaussian_tpu_torch/csrc``;
-  3. kernel vs its plain PyTorch version on the sorted pair stream of one
-     full-width view and of a high-opacity variant (early exit), with the
-     tolerances of ``tests/test_tile_kernels.py``, and both times;
-  4. the slice: the headline scene of ``bench.py`` (200,000 LiDAR-like
-     Gaussians in a 204,800 pool, SH degree 3, default deformation field)
-     rendered at 640x960 through ``render()`` for 3 rig cameras x 2 times
-     and through ``eval.video.render_pixels`` with the decomposition, the
-     kernel launch counter checked against the rasterize calls; per-frame
-     times and a split by stage;
-  5. the same render on a small scene on the GPU and on the CPU (plain
-     compositor), which must agree.
+  2. build both CUDA compositors from ``s3gaussian_tpu_torch/csrc`` (one
+     ``nvcc`` each, in parallel), with ptxas registers and spills;
+  3. each kernel vs its plain PyTorch version on the sorted pair stream of
+     one full-width view and of a high-opacity variant (early exit), with
+     the tolerances of ``tests/test_tile_kernels.py``, and both times.  The
+     backward's cotangent is the gradient of the train step's loss with
+     respect to the compositor output;
+  4. the render path: the headline scene of ``bench.py`` (200,000
+     LiDAR-like Gaussians in a 204,800 pool, SH degree 3, default
+     deformation field) rendered at 640x960 through ``render()`` for 3 rig
+     cameras x 2 times and through ``eval.video.render_pixels`` with the
+     decomposition, launch counts checked against the rasterize calls;
+     per-frame times and a split by stage;
+  5. the training slice, the main path: ``init_state`` on that scene, then
+     2 coarse and 5 fine ``train_step``s against bench.py's random RGB and
+     LiDAR-depth targets, launch counts checked; per-step times, a
+     forward / backward / optimizer split and peak device memory;
+  6. a small scene on the GPU and on the CPU (plain compositors): one
+     render and one fine train step from the same state, which must agree.
 
-Then one JSON line per kernel, the card line, and last
+Then one JSON line with both kernels, the card line, and last
 ``{"ok": true, "device": {...}}``.  The port imports no jax; neither
 does this script.
 """
@@ -29,6 +36,7 @@ does this script.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -42,8 +50,31 @@ N_GAUSSIANS = 200_000
 CAPACITY = 204_800
 TIMES = (0.4, 0.6)
 YAWS_DEG = (-40.0, 0.0, 40.0)
-# tests/test_tile_kernels.py:46-49
+SPATIAL_LR_SCALE = 30.0          # bench.py's headline
+COARSE_STEPS, FINE_STEPS, SPLIT_STEPS = 2, 5, 3
+# tests/test_tile_kernels.py:46-49 (forward) and :91-93 (backward)
 RGBD_ATOL, RGBD_RTOL, FINAL_T_ATOL, N_CONTRIB_ATOL = 5e-4, 1e-4, 2e-4, 1.0
+BWD_ATOL_SCALE, BWD_RTOL = 1e-5, 1e-4
+# GPU vs CPU train step on the small scene: loss rtol; each tensor's
+# update (after - before) atol 1e-3·max|update| and rtol 1e-2 — the
+# bfloat16 plane gradients round once per cell, and a cell whose f32 sum
+# lands on a rounding boundary moves by one bf16 step (0.4%) in one of
+# the two
+STEP_LOSS_RTOL, STEP_ATOL_SCALE, STEP_RTOL = 1e-4, 1e-3, 1e-2
+# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, float32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float operations per pixel-pair, counted from the kernels' loop bodies
+# (csrc/composite_fwd.cu, composite_bwd.cu; exp counted as one):
+#   every evaluated pixel-pair: dx, dy 2 + conic_power 9 + exp 1 +
+#     alpha (mul, min) 2 = 14;
+#   forward, contributing: test_T 2 + w 1 + rgb/depth FMAs 8 + sum_w 1 +
+#     n_contrib 1 = 13;
+#   backward, contributing: test_T 2 + w 1 + e 8 + prefix 2 + d_alpha 5 +
+#     d_power 2 + x, y 8 + conic 9 + opacity 1 + rgb/depth 4 + the
+#     reduction's 10 adds = 52.
+ALPHA_OPS, FWD_BLEND_OPS, BWD_BLEND_OPS = 14, 13, 52
 
 
 class SmokeFailure(Exception):
@@ -64,7 +95,8 @@ def card_line() -> str:
 
 def make_scene(torch, dev, n, cap, seed=0):
     """bench.py's "frustum" scene: LiDAR-like points in the view frustum,
-    sized by create_from_pcd's 3-NN rule."""
+    sized by create_from_pcd's 3-NN rule.  Returns the pool and the
+    generator, advanced as bench.py's is before it draws the targets."""
     from s3gaussian_tpu_torch.models.pool import create_from_pcd
     rng = np.random.default_rng(seed)
     tan = np.tan(0.5)
@@ -73,12 +105,13 @@ def make_scene(torch, dev, n, cap, seed=0):
                     rng.uniform(-0.9, 0.9, n) * tan * z, z],
                    1).astype(np.float32)
     cols = rng.random((n, 3)).astype(np.float32)
-    return create_from_pcd(pts, cols, cap, device=dev)
+    return create_from_pcd(pts, cols, cap, device=dev), rng
 
 
-def rig_camera(torch, dev, yaw_deg, t, h, w):
+def rig_camera(torch, dev, yaw_deg, t, h, w, image=None, depth_map=None):
     """A rig camera at the ego centre looking along ``yaw`` (bench.py's
-    FRONT_LEFT / FRONT / FRONT_RIGHT geometry)."""
+    FRONT_LEFT / FRONT / FRONT_RIGHT geometry); yaw 0 is bench.py's
+    headline camera."""
     from s3gaussian_tpu_torch.data.cameras import Camera
     from s3gaussian_tpu_torch.ops.transforms import projection_matrix
     yaw = math.radians(yaw_deg)
@@ -88,11 +121,15 @@ def rig_camera(torch, dev, yaw_deg, t, h, w):
                             np.float32)
     full = (view @ projection_matrix(0.01, 100.0, 1.0, 1.0).T).astype(
         np.float32)
-    return Camera(world_view=torch.tensor(view, device=dev),
-                  full_proj=torch.tensor(full, device=dev),
+
+    def t_(x):
+        return None if x is None else torch.tensor(x, device=dev)
+
+    return Camera(world_view=t_(view), full_proj=t_(full),
                   campos=torch.zeros(3, device=dev),
                   time=torch.tensor(t, dtype=torch.float32, device=dev),
-                  fovx=1.0, fovy=1.0, image_height=h, image_width=w)
+                  fovx=1.0, fovy=1.0, image_height=h, image_width=w,
+                  image=t_(image), depth_map=t_(depth_map))
 
 
 def cuda_ms(torch, fn, reps, warmup=2):
@@ -110,7 +147,8 @@ def cuda_ms(torch, fn, reps, warmup=2):
 
 def frame_stages(torch, cam, pool, deform, pipe, bg, aabb, cfg):
     """render()'s fine path split into its stages with CUDA events between
-    them.  Returns (ms per stage, [T,8,P] compositor output)."""
+    them.  Returns (ms per stage, [T,8,P] compositor output, stream,
+    tile_starts)."""
     from s3gaussian_tpu_torch.ops import rasterizer as rz
     from s3gaussian_tpu_torch.ops.project import sh_to_color
     from s3gaussian_tpu_torch.ops.tile_kernels import composite_fwd
@@ -160,17 +198,125 @@ def compare_tiles(got, want):
     return float(err[:, 0:5].max())
 
 
+def compare_pair_grads(got, want, n_pairs):
+    """Backward kernel vs plain [16, M] at the tolerance of
+    tests/test_tile_kernels.py:91-93; exact zeros where nothing is
+    written.  Returns the max abs error over the first n_pairs columns."""
+    g, w = got[:, :n_pairs].double(), want[:, :n_pairs].double()
+    err = (g - w).abs()
+    scale = max(float(w.abs().max()), 1e-30)
+    bad = err > BWD_ATOL_SCALE * scale + BWD_RTOL * w.abs()
+    check(not bool(bad.any()),
+          f"pair gradients differ at {int(bad.sum())} entries: max abs "
+          f"{float(err.max()):.3e}, scale {scale:.3e}")
+    check(bool((got[:, n_pairs:] == 0).all()),
+          "gradients past n_pairs are not zero")
+    check(bool((got[10:] == 0).all()), "gradient rows 10-15 are not zero")
+    return float(err.max())
+
+
+def step_loss_cotangent(torch, out, gt, gt_depth, opt, gx, gy, cfg):
+    """The gradient of the train step's image and depth terms (the only
+    terms that read the compositor) with respect to the compositor output
+    ``out`` [T, 8, P]; rows 5-7 come out 0."""
+    from s3gaussian_tpu_torch.ops.composite import unpack_tiles
+    from s3gaussian_tpu_torch.train.losses import depth_loss, l1_loss, ssim
+    leaf = out.detach().requires_grad_(True)
+    maps = unpack_tiles(leaf, H, W, gx, gy, cfg.tile_x, cfg.tile_y)
+    color = maps["rgb"]                                  # bg is black
+    img = gt.permute(2, 0, 1)
+    loss = (l1_loss(color, img) + opt.lambda_dssim * (1.0 - ssim(color, img))
+            + opt.lambda_depth * depth_loss(maps["depth"], gt_depth))
+    (dout,) = torch.autograd.grad(loss, [leaf])
+    return dout.contiguous()
+
+
+def work_counts(torch, stream, tile_starts, gx, gy, tx, ty, chunk=128):
+    """What a compositor must do on this stream, counted as the plain
+    version composites it: the pixel-pairs evaluated (a pixel evaluates
+    its tile's pairs until the one that saturates it, inclusive) and the
+    pairs that must be read (per tile, the most any of its pixels
+    evaluates).  The forward output's row 5 counts the contributing ones."""
+    from s3gaussian_tpu_torch.ops import composite as comp
+    dev = stream.device
+    starts = tile_starts[:-1].long()
+    counts = tile_starts[1:].long() - starts
+    px, py = comp.tile_pixel_coords(gx, gy, tx, ty, dev)
+    evaluated = torch.zeros(gx * gy, tx * ty, device=dev)
+    t = torch.ones(gx * gy, 1, tx * ty, device=dev)
+    lane = torch.arange(chunk, device=dev)
+    with torch.no_grad():
+        for ci in range(-(-int(counts.max()) // chunk)):
+            valid = (ci * chunk + lane)[None, :] < counts[:, None]
+            idx = torch.where(valid, starts[:, None] + ci * chunk + lane, 0)
+            f = stream[:, idx]
+            dx = f[comp.FX][..., None] - px
+            dy = f[comp.FY][..., None] - py
+            power = (-0.5 * (f[comp.FCA][..., None] * dx * dx
+                             + f[comp.FCC][..., None] * dy * dy)
+                     - f[comp.FCB][..., None] * dx * dy)
+            alpha = torch.clamp(f[comp.FOP][..., None] * torch.exp(power),
+                                max=comp.ALPHA_MAX)
+            am = torch.where((power > 0) | (alpha < comp.ALPHA_MIN)
+                             | ~valid[..., None], 0.0, alpha)
+            cum_incl = t * torch.cumprod(1.0 - am, dim=1)
+            before = cum_incl / (1.0 - am)
+            evaluated += ((before >= comp.T_EPS) & valid[..., None]).sum(1)
+            t = cum_incl[:, -1:]
+    return int(evaluated.sum()), int(evaluated.amax(1).sum())
+
+
+def bound(n_bytes, n_ops):
+    """Least time on the card (ms) and what sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def state_to(torch, state, dev):
+    """A deep copy of a TrainState on ``dev``."""
+    from s3gaussian_tpu_torch.models.pool import GaussianPool, PoolStats
+    from s3gaussian_tpu_torch.train.optim import AdamState
+
+    def tree(x):
+        return {g: {k: v.to(dev, copy=True) for k, v in d.items()}
+                for g, d in x.items()}
+
+    return dataclasses.replace(
+        state,
+        pool=GaussianPool(**{f.name: getattr(state.pool, f.name).to(
+            dev, copy=True) for f in dataclasses.fields(GaussianPool)}),
+        deform=copy.deepcopy(state.deform).to(dev),
+        adam=AdamState(mu=tree(state.adam.mu), nu=tree(state.adam.nu),
+                       count=state.adam.count.to(dev, copy=True)),
+        stats=PoolStats(*(getattr(state.stats, f.name).to(dev, copy=True)
+                          for f in dataclasses.fields(PoolStats))),
+        step=state.step.to(dev, copy=True), aabb=state.aabb.to(dev),
+        nan_skips=state.nan_skips.to(dev, copy=True))
+
+
+def snapshot(torch, state):
+    """Copies of every trainable tensor, keyed (group, name)."""
+    from s3gaussian_tpu_torch.train.trainer import param_tree
+    return {(g, k): v.detach().clone()
+            for g, d in param_tree(state.pool, state.deform).items()
+            for k, v in d.items()}
+
+
 def main() -> int:
     import torch
 
     from s3gaussian_tpu_torch.config import (ModelHiddenParams,
+                                             OptimizationParams,
                                              PipelineParams, RasterConfig)
     from s3gaussian_tpu_torch.device import configure_device
     from s3gaussian_tpu_torch.eval.video import render_pixels
     from s3gaussian_tpu_torch.models.deformation import DeformationField
     from s3gaussian_tpu_torch.ops import tile_kernels as tk
-    from s3gaussian_tpu_torch.ops.composite import composite_tiles_torch
+    from s3gaussian_tpu_torch.ops.composite import (composite_tiles_bwd_torch,
+                                                    composite_tiles_torch)
     from s3gaussian_tpu_torch.render.renderer import render
+    from s3gaussian_tpu_torch.train import trainer as tr
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this run needs an "
@@ -181,26 +327,31 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     cap = torch.cuda.get_device_capability(0)
-    check(cap == (9, 0), f"capability {cap}: the kernel is built for sm_90a")
+    check(cap == (9, 0), f"capability {cap}: the kernels are built for "
+          f"sm_90a")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"capability {cap}", flush=True)
     dev = configure_device("cuda")
 
     # 2. build
     t0 = time.time()
-    log = tk.build()
+    logs = tk.build()
     build_s = time.time() - t0
-    ptxas = " | ".join(ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln)
-    print(f"build: {build_s:.2f} s -> {tk.library_path().name} [{ptxas}]",
+    for name, log in logs.items():
+        ptxas = " | ".join(ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln)
+        print(f"build {name}: -> {tk.library_path(name).name} [{ptxas}]")
+    print(f"build: {build_s:.2f} s for {len(logs)} kernels in parallel",
           flush=True)
 
-    # the slice: bench.py's headline workload
+    # the headline workload of bench.py
     t0 = time.time()
-    pool = make_scene(torch, dev, N_GAUSSIANS, CAPACITY)
+    pool, rng = make_scene(torch, dev, N_GAUSSIANS, CAPACITY)
+    gt = rng.random((H, W, 3)).astype(np.float32)          # bench.py:102-103
+    gt_depth = rng.uniform(1, 70, (H, W)).astype(np.float32)
     hp = ModelHiddenParams()
+    opt = OptimizationParams()
     deform = DeformationField(hp, torch.Generator().manual_seed(0), dev)
-    deform.eval()
     aabb = torch.tensor([[80.0, 80.0, 80.0], [-80.0, -80.0, -10.0]],
                         device=dev)
     pipe = PipelineParams()
@@ -215,8 +366,9 @@ def main() -> int:
           f"{len(cams)} cameras {H}x{W}, set-up {time.time() - t0:.2f} s",
           flush=True)
 
-    # 3. kernel vs plain on the card, full-width view + high opacity
+    # 3. kernels vs plain on the card, full-width view + high opacity
     gx, gy = -(-W // cfg.tile_x), -(-H // cfg.tile_y)
+    n_tiles, p = gx * gy, cfg.tile_x * cfg.tile_y
     _, _, stream, tile_starts = frame_stages(torch, cams[1], pool, deform,
                                              pipe, bg, aabb, cfg)
     hi_pool = copy.copy(pool)
@@ -225,62 +377,111 @@ def main() -> int:
                                    device=dev)[:, None]
     _, _, hi_stream, hi_starts = frame_stages(torch, cams[1], hi_pool, deform,
                                               pipe, bg, aabb, cfg)
-    max_err = 0.0
-    times = {}
+    gt_t = torch.tensor(gt, device=dev)
+    gt_depth_t = torch.tensor(gt_depth, device=dev)
+    fwd = {"max_err": 0.0}
+    bwd = {"max_err": 0.0}
     for name, (s, ts) in {"view": (stream, tile_starts),
                           "high_opacity": (hi_stream, hi_starts)}.items():
+        n_pairs = int(ts[-1])
         got = tk.composite_fwd(s, ts, gx, gy, cfg.tile_x, cfg.tile_y)
         want = composite_tiles_torch(s, ts, gx, gy, cfg.tile_x, cfg.tile_y)
         torch.cuda.synchronize()
         err = compare_tiles(got, want)
-        max_err = max(max_err, err)
+        fwd["max_err"] = max(fwd["max_err"], err)
         ms = cuda_ms(torch, lambda: tk.composite_fwd(
             s, ts, gx, gy, cfg.tile_x, cfg.tile_y), reps=20)
         plain_ms = cuda_ms(torch, lambda: composite_tiles_torch(
             s, ts, gx, gy, cfg.tile_x, cfg.tile_y), reps=3, warmup=1)
-        times[name] = (ms, plain_ms)
-        n_pairs = int(ts[-1])
-        print(f"kernel vs plain [{name}]: M={s.shape[1]} n_pairs={n_pairs} "
-              f"tiles={gx * gy} max_abs_err={err:.3e} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms ({card})", flush=True)
+        print(f"composite_fwd vs plain [{name}]: M={s.shape[1]} "
+              f"n_pairs={n_pairs} tiles={n_tiles} max_abs_err={err:.3e} "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms ({card})",
+              flush=True)
 
-    # 4. the slice through the user entry points, launches counted
+        dout = step_loss_cotangent(torch, got, gt_t, gt_depth_t, opt, gx, gy,
+                                   cfg)
+        check(bool((dout[:, 5:] == 0).all()), "cotangent rows 5-7 not zero")
+        gk = tk.composite_bwd(s, ts, got, dout, gx, gy, cfg.tile_x,
+                              cfg.tile_y)
+        gp = composite_tiles_bwd_torch(s, ts, got, dout, gx, gy, cfg.tile_x,
+                                       cfg.tile_y)
+        torch.cuda.synchronize()
+        berr = compare_pair_grads(gk, gp, n_pairs)
+        bwd["max_err"] = max(bwd["max_err"], berr)
+        again = tk.composite_bwd(s, ts, got, dout, gx, gy, cfg.tile_x,
+                                 cfg.tile_y)
+        check(torch.equal(again, gk), "backward kernel not deterministic")
+        bms = cuda_ms(torch, lambda: tk.composite_bwd(
+            s, ts, got, dout, gx, gy, cfg.tile_x, cfg.tile_y), reps=10)
+        bplain_ms = cuda_ms(torch, lambda: composite_tiles_bwd_torch(
+            s, ts, got, dout, gx, gy, cfg.tile_x, cfg.tile_y), reps=1,
+            warmup=1)
+        print(f"composite_bwd vs plain [{name}]: max_abs_err={berr:.3e} "
+              f"(scale {float(gp[:, :n_pairs].abs().max()):.3e}) kernel "
+              f"{bms:.4f} ms plain {bplain_ms:.4f} ms ({card})", flush=True)
+
+        evaluated, needed = work_counts(torch, s, ts, gx, gy, cfg.tile_x,
+                                        cfg.tile_y)
+        contributing = int(got[:, 5].sum())
+        print(f"work [{name}]: {evaluated} pixel-pairs evaluated, "
+              f"{contributing} contributing, {needed} pairs read of "
+              f"{n_pairs}", flush=True)
+        if name == "view":
+            io_stream = needed * 10 * 4 + (n_tiles + 1) * 4
+            fwd.update(ms=ms, plain_ms=plain_ms, bound=bound(
+                io_stream + n_tiles * 8 * p * 4,
+                evaluated * ALPHA_OPS + contributing * FWD_BLEND_OPS))
+            bwd.update(ms=bms, plain_ms=bplain_ms, bound=bound(
+                io_stream + 2 * n_tiles * 5 * p * 4 + 16 * s.shape[1] * 4,
+                evaluated * ALPHA_OPS + contributing * BWD_BLEND_OPS))
+        del gk, gp, again, dout
+    for name, d in (("composite_fwd", fwd), ("composite_bwd", bwd)):
+        print(f"bound {name} [view]: {d['bound'][0]:.4f} ms, set by "
+              f"{d['bound'][1]} (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s "
+              f"f32); kernel {d['ms']:.4f} ms = "
+              f"{d['bound'][0] / d['ms']:.3f} of the bound", flush=True)
+    del stream, tile_starts, hi_stream, hi_starts, hi_pool
+
+    # 4. the render path through the user entry points, launches counted
     rasterize_calls = 0
     frame_ms = []
     renders = []
-    tk.launches = 0
-    for cam in cams:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pkg = render(cam, pool, deform, pipe, bg, aabb, 3, stage="fine",
-                     cfg=cfg)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        rasterize_calls += 1
-        aux = pkg["raster_aux"]
-        check(pkg["render"].shape == (3, H, W), "render shape")
-        check(bool(torch.isfinite(pkg["render"]).all()
-                   and torch.isfinite(pkg["depth"]).all()),
-              "non-finite render")
-        check(int(aux["n_pairs"]) > 0, "no pairs rendered")
-        check(int(aux["overflow_pairs"]) == 0,
-              f"{int(aux['overflow_pairs'])} pairs beyond the budget")
-        renders.append(pkg["render"])
+    tk.launches = tk.bwd_launches = 0
+    with torch.no_grad():
+        for cam in cams:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pkg = render(cam, pool, deform, pipe, bg, aabb, 3, stage="fine",
+                         cfg=cfg)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            rasterize_calls += 1
+            aux = pkg["raster_aux"]
+            check(pkg["render"].shape == (3, H, W), "render shape")
+            check(bool(torch.isfinite(pkg["render"]).all()
+                       and torch.isfinite(pkg["depth"]).all()),
+                  "non-finite render")
+            check(int(aux["n_pairs"]) > 0, "no pairs rendered")
+            check(int(aux["overflow_pairs"]) == 0,
+                  f"{int(aux['overflow_pairs'])} pairs beyond the budget")
+            renders.append(pkg["render"])
     frames = render_pixels(cams, pool, deform, pipe, bg, aabb, 3, "fine", cfg,
                            return_decomposition=True)
     rasterize_calls += 3 * len(cams)
     torch.cuda.synchronize()
-    launches = tk.launches
-    check(launches == rasterize_calls,
-          f"{launches} kernel launches for {rasterize_calls} rasterize calls")
+    render_launches = (tk.launches, tk.bwd_launches)
+    check(render_launches == (rasterize_calls, 0),
+          f"{render_launches} kernel launches for {rasterize_calls} "
+          f"rasterize calls without gradient")
     for img, frame in zip(renders, frames["rgbs"]):
         check(torch.allclose(frame, torch.clamp(img, 0, 1).permute(1, 2, 0),
                              rtol=0.0, atol=1e-5),
               "render_pixels frame differs from render()")
     check(len(frames["dynamic_rgbs"]) == len(cams), "decomposition missing")
-    print(f"slice: {len(cams)} frames via render() + {len(cams)} via "
-          f"render_pixels (decomposition), {rasterize_calls} rasterize calls, "
-          f"{launches} kernel launches", flush=True)
+    print(f"render path: {len(cams)} frames via render() + {len(cams)} via "
+          f"render_pixels (decomposition), {rasterize_calls} rasterize "
+          f"calls, {render_launches[0]} forward / {render_launches[1]} "
+          f"backward launches", flush=True)
     print("frame ms (render(), host clock, synchronised): "
           + " ".join(f"{x:.2f}" for x in frame_ms)
           + f" | median {np.median(frame_ms):.2f} ({card})", flush=True)
@@ -290,44 +491,180 @@ def main() -> int:
     print("stage ms (median of the 6 frames, CUDA events): "
           + " ".join(f"{k}={v:.3f}" for k, v in split.items())
           + f" ({card})", flush=True)
+    del renders, frames
 
-    # 5. small scene: GPU vs CPU (plain compositor) through render()
+    # 5. the training slice: 2 coarse + 5 fine train_steps, launches counted
+    state = tr.init_state(pool, deform, aabb)
+    before = snapshot(torch, state)
+    train_cams = [rig_camera(torch, dev, 0.0, 0.4 + 1e-4 * i, H, W, gt,
+                             gt_depth)
+                  for i in range(COARSE_STEPS + FINE_STEPS + SPLIT_STEPS)]
+    stages = ["coarse"] * COARSE_STEPS + ["fine"] * FINE_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    tk.launches = tk.bwd_launches = 0
+    for cam, stage in zip(train_cams, stages):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, aux = tr.train_step(state, cam, stage, 3, hp, opt, pipe, cfg,
+                                   SPATIAL_LR_SCALE, bg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(aux["metrics"]["loss"].item())
+        check(math.isfinite(losses[-1]), f"{stage} step: loss {losses[-1]}")
+        check(int(aux["overflow_pairs"]) == 0,
+              f"{stage} step: {int(aux['overflow_pairs'])} pairs beyond the "
+              f"budget")
+    train_launches = (tk.launches, tk.bwd_launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps = len(stages)
+    check(train_launches == (n_steps, n_steps),
+          f"{train_launches} forward/backward launches for {n_steps} "
+          f"rasterize calls with gradient")
+    check(int(state.nan_skips) == 0, f"nan_skips {int(state.nan_skips)}")
+    check(int(state.step) == n_steps, f"step {int(state.step)}")
+    after = snapshot(torch, state)
+    moved = {}
+    for (g, k), v in before.items():
+        group = k if g == "pool" else ("grid" if k.startswith("grid.")
+                                       else "deformation")
+        moved[group] = moved.get(group, False) or not torch.equal(
+            v, after[(g, k)])
+    check(all(moved.values()), f"groups that did not move: "
+          f"{[k for k, v in moved.items() if not v]}")
+    vis = aux["visible"]
+    check(int(vis.sum()) > 0 and bool((state.stats.denom[vis] > 0).all()),
+          "denom is not > 0 on the visible rows")
+    print(f"training slice: {COARSE_STEPS} coarse + {FINE_STEPS} fine "
+          f"train_steps, losses " + " ".join(f"{x:.5f}" for x in losses)
+          + f"; {train_launches[0]} forward / {train_launches[1]} backward "
+          f"launches for {n_steps} rasterize calls; groups moved "
+          f"{sorted(moved)}; n_pairs {int(aux['n_pairs'])}, "
+          f"visible {int(vis.sum())}", flush=True)
+    fine_ms = step_ms[COARSE_STEPS:]
+    print("step ms (train_step, CUDA events): "
+          + " ".join(f"{x:.2f}" for x in step_ms)
+          + f" | fine median {np.median(fine_ms):.2f}; peak device memory "
+          f"{peak_gib:.2f} GiB ({card})", flush=True)
+    del before, after
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for cam in train_cams[n_steps:]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, aux, tree, tap = tr.step_forward(state, cam, "fine", 3, hp,
+                                               opt, pipe, cfg, bg)
+        ev[1].record()
+        grads, tap_grad = tr.step_gradients(loss, tree, tap)
+        ev[2].record()
+        state = tr.apply_param_update(state, grads, tap_grad, loss.detach(),
+                                      aux["radii"], aux["visible"], opt,
+                                      SPATIAL_LR_SCALE)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(parts):
+            parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+        del loss, aux, tree, tap, grads, tap_grad
+    print("fine step split (median of 3, CUDA events): "
+          + " ".join(f"{k}={np.median(v):.3f}" for k, v in parts.items())
+          + f" ms ({card})", flush=True)
+    del state
+
+    # 6. small scene: GPU vs CPU (plain compositors): render + train step
     small_cfg = RasterConfig(max_visible=4096, pair_budget=1 << 16)
-    small_pool = make_scene(torch, dev, 3000, 4096, seed=2)
+    small_pool, srng = make_scene(torch, dev, 3000, 4096, seed=2)
     cpu_pool = copy.copy(small_pool)
     for f in ("xyz", "features_dc", "features_rest", "scaling", "rotation",
               "opacity", "alive"):
         setattr(cpu_pool, f, getattr(small_pool, f).cpu())
     cpu_deform = copy.deepcopy(deform).cpu()
     worst = 0.0
-    for yaw in (0.0, 40.0):
-        cam_g = rig_camera(torch, dev, yaw, 0.5, 96, 160)
-        cam_c = rig_camera(torch, "cpu", yaw, 0.5, 96, 160)
-        g = render(cam_g, small_pool, deform, pipe, bg, aabb, 3, cfg=small_cfg)
-        c = render(cam_c, cpu_pool, cpu_deform, pipe, bg.cpu(), aabb.cpu(), 3,
-                   cfg=small_cfg)
-        for k in ("render", "depth"):
-            a, b = g[k].cpu().double(), c[k].double()
-            err = (a - b).abs()
-            check(bool((err <= RGBD_ATOL + RGBD_RTOL * b.abs()).all()),
-                  f"small scene {k} GPU vs CPU: max abs {float(err.max())}")
-            worst = max(worst, float(err.max()))
-        check(int(g["raster_aux"]["n_pairs"]) > 0, "small scene: no pairs")
-    print(f"reference: small scene (3000 gaussians, 96x160) GPU vs CPU plain "
-          f"path max abs err {worst:.3e}", flush=True)
+    with torch.no_grad():
+        for yaw in (0.0, 40.0):
+            cam_g = rig_camera(torch, dev, yaw, 0.5, 96, 160)
+            cam_c = rig_camera(torch, "cpu", yaw, 0.5, 96, 160)
+            g = render(cam_g, small_pool, deform, pipe, bg, aabb, 3,
+                       cfg=small_cfg)
+            c = render(cam_c, cpu_pool, cpu_deform, pipe, bg.cpu(),
+                       aabb.cpu(), 3, cfg=small_cfg)
+            for k in ("render", "depth"):
+                a, b = g[k].cpu().double(), c[k].double()
+                err = (a - b).abs()
+                check(bool((err <= RGBD_ATOL + RGBD_RTOL * b.abs()).all()),
+                      f"small scene {k} GPU vs CPU: max abs "
+                      f"{float(err.max())}")
+                worst = max(worst, float(err.max()))
+            check(int(g["raster_aux"]["n_pairs"]) > 0, "small scene: no pairs")
+    print(f"reference: small scene (3000 gaussians, 96x160) render GPU vs CPU "
+          f"plain path max abs err {worst:.3e}", flush=True)
+
+    s_cpu = tr.init_state(cpu_pool, cpu_deform, aabb.cpu())
+    mrng = np.random.default_rng(3)        # mid-training moments
+    for tree_, sc in ((s_cpu.adam.mu, 1e-3), (s_cpu.adam.nu, 1e-6)):
+        for d in tree_.values():
+            for v in d.values():
+                x = mrng.normal(size=tuple(v.shape)) * sc
+                v.copy_(torch.from_numpy(np.abs(x) if sc < 1e-4 else x))
+    s_cpu.adam.count.fill_(5)
+    s_gpu = state_to(torch, s_cpu, dev)
+    start = snapshot(torch, s_cpu)
+    img = srng.random((96, 160, 3)).astype(np.float32)
+    dmap = srng.uniform(1, 70, (96, 160)).astype(np.float32)
+    s_gpu, aux_g = tr.train_step(
+        s_gpu, rig_camera(torch, dev, 0.0, 0.5, 96, 160, img, dmap), "fine",
+        3, hp, opt, pipe, small_cfg, SPATIAL_LR_SCALE, bg)
+    s_cpu, aux_c = tr.train_step(
+        s_cpu, rig_camera(torch, "cpu", 0.0, 0.5, 96, 160, img, dmap),
+        "fine", 3, hp, opt, pipe, small_cfg, SPATIAL_LR_SCALE, bg.cpu())
+    lg, lc = aux_g["metrics"]["loss"].item(), aux_c["metrics"]["loss"].item()
+    check(abs(lg - lc) <= STEP_LOSS_RTOL * abs(lc),
+          f"small train step loss GPU {lg} vs CPU {lc}")
+    got, want = snapshot(torch, s_gpu), snapshot(torch, s_cpu)
+    worst_step = 0.0
+    for key, w0 in start.items():
+        dg = (got[key].cpu() - w0).double()
+        dc = (want[key] - w0).double()
+        scale = max(float(dc.abs().max()), 1e-30)
+        err = (dg - dc).abs()
+        bad = err > STEP_ATOL_SCALE * scale + STEP_RTOL * dc.abs()
+        check(not bool(bad.any()),
+              f"small train step {key}: update differs at {int(bad.sum())} "
+              f"of {bad.numel()} entries, max {float(err.max()):.3e} vs "
+              f"scale {scale:.3e}")
+        worst_step = max(worst_step, float(err.max()) / scale)
+    for f in ("denom", "max_radii2d"):
+        a, b = getattr(s_gpu.stats, f).cpu(), getattr(s_cpu.stats, f)
+        n_diff = int((a != b).sum())
+        check(n_diff <= max(1, a.numel() // 1000),
+              f"small train step {f}: {n_diff} rows differ")
+    acc_g, acc_c = s_gpu.stats.xyz_grad_accum.cpu(), s_cpu.stats.xyz_grad_accum
+    acc_err = float((acc_g - acc_c).abs().max())
+    check(acc_err <= STEP_ATOL_SCALE * float(acc_c.abs().max()),
+          f"small train step xyz_grad_accum differs by {acc_err:.3e}")
+    print(f"reference: small fine train_step GPU vs CPU: loss {lg:.6f} vs "
+          f"{lc:.6f}, worst update error {worst_step:.3e} of its tensor's "
+          f"largest update, xyz_grad_accum max abs err {acc_err:.3e}",
+          flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
-    ms, plain_ms = times["view"]
-    print(json.dumps({"kernels": [{
-        "name": "composite_fwd",
-        "route": "cuda",
-        "source": "s3gaussian_tpu_torch/csrc/composite_fwd.cu",
-        "replaces": "s3gaussian_tpu/ops/tile_kernels.py:211",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    kernels = []
+    for name, d, line in (("composite_fwd", fwd, 211),
+                          ("composite_bwd", bwd, 411)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"s3gaussian_tpu_torch/csrc/{name}.cu",
+            "replaces": f"s3gaussian_tpu/ops/tile_kernels.py:{line}",
+            "launches": train_launches[0 if name == "composite_fwd" else 1],
+            "max_abs_err": d["max_err"],
+            "ms": d["ms"],
+            "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound"][0],
+            "bound_by": d["bound"][1],
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,16 +24,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-// rows of the feature-major [16, M] pair stream (ops/composite.py)
-constexpr int FX = 0, FY = 1, FCA = 2, FCB = 3, FCC = 4, FOP = 5,
-              FR = 6, FG = 7, FB = 8, FD = 9;
-constexpr int kDataRows = 10;
-constexpr int kOutRows = 8;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
+using namespace s3g;
 
 __global__ void composite_fwd_kernel(const float* __restrict__ feat,
                                      int64_t m,
@@ -69,9 +64,8 @@ __global__ void composite_fwd_kernel(const float* __restrict__ feat,
     for (int k = 0; k < n && !done; ++k) {
       const float dx = batch[FX * p + k] - px;
       const float dy = batch[FY * p + k] - py;
-      const float power = -0.5f * (batch[FCA * p + k] * dx * dx +
-                                   batch[FCC * p + k] * dy * dy) -
-                          batch[FCB * p + k] * dx * dy;
+      const float power = conic_power(batch[FCA * p + k], batch[FCB * p + k],
+                                      batch[FCC * p + k], dx, dy);
       if (power > 0.0f) continue;
       const float alpha = fminf(kAlphaMax, batch[FOP * p + k] * expf(power));
       if (alpha < kAlphaMin) continue;

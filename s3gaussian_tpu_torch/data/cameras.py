@@ -1,15 +1,18 @@
 """Camera container (port of ``s3gaussian_tpu/data/cameras.py``).
 
 A ``Camera`` is a plain dataclass of tensors: the row-vector view and
-full-projection transforms the rasterizer consumes, the camera centre and
-the frame time.  The supervision rasters of the JAX camera (image, lidar
-depth, masks) are not carried yet: the render path does not read them.
+full-projection transforms the rasterizer consumes, the camera centre,
+the frame time and the supervision rasters the train step reads (the RGB
+image, the sparse LiDAR depth, the DINO feature map).  The masks of the
+JAX camera (dynamic, sky, semantic, instance, SAM) are not carried yet:
+no ported path reads them.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,6 +33,9 @@ class Camera:
     fovy: float
     image_height: int
     image_width: int
+    image: Optional[torch.Tensor] = None       # [H,W,3] in [0,1]
+    depth_map: Optional[torch.Tensor] = None   # [H,W] lidar depth, 0 = none
+    feat_map: Optional[torch.Tensor] = None    # [H,W,3] PCA'd DINO features
 
     @property
     def tanfovx(self) -> float:
@@ -43,7 +49,10 @@ class Camera:
 def make_camera(R: np.ndarray, T: np.ndarray, fovx: float, fovy: float,
                 width: int, height: int, time: float = 0.0,
                 znear: float = 0.01, zfar: float = 100.0,
-                device: torch.device | str = "cpu") -> Camera:
+                image: Optional[np.ndarray] = None,
+                depth_map: Optional[np.ndarray] = None,
+                feat_map: Optional[np.ndarray] = None,
+                device: torch.device | str = "cuda") -> Camera:
     """Camera from COLMAP-convention R (c2w rotation) and T (w2c
     translation), as ``scene/cameras.py:26-64`` of the reference builds it."""
     w2c = world_to_view(R, T)
@@ -51,9 +60,12 @@ def make_camera(R: np.ndarray, T: np.ndarray, fovx: float, fovy: float,
     fp = full_projection(w2c, projection_matrix(znear, zfar, fovx, fovy))
 
     def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        return (None if x is None
+                else torch.as_tensor(np.asarray(x, np.float32), device=device))
 
     return Camera(world_view=t(world_view), full_proj=t(fp),
                   campos=t(camera_center(w2c)), time=t(time),
                   fovx=float(fovx), fovy=float(fovy),
-                  image_height=int(height), image_width=int(width))
+                  image_height=int(height), image_width=int(width),
+                  image=t(image), depth_map=t(depth_map),
+                  feat_map=t(feat_map))

@@ -24,6 +24,7 @@ def _frame(img: torch.Tensor) -> torch.Tensor:
     return torch.clamp(img, 0.0, 1.0).permute(1, 2, 0)
 
 
+@torch.no_grad()
 def render_pixels(cameras: Sequence[Camera], pool: GaussianPool,
                   deform: Optional[DeformationField], pipe: PipelineParams,
                   bg: torch.Tensor, aabb: Optional[torch.Tensor],

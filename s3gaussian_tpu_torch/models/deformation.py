@@ -1,6 +1,6 @@
 """Deformation field: hexplane encoder + multi-head MLP decoder, as an
-``nn.Module`` (port of ``s3gaussian_tpu/models/deformation.py``, forward
-only).
+``nn.Module`` (port of ``s3gaussian_tpu/models/deformation.py``),
+trainable end to end.
 
 Heads are ReLU → Linear(W,W) → ReLU → Linear(W,out) for dx(3), ds(3),
 dr(4), do(1), dshs(48), gated by ``no_dx``/``no_ds``/``no_dr``/``no_do``/
@@ -10,6 +10,10 @@ torch-default U(±1/√fan_in) biases, every draw from the caller's
 ``torch.Generator``.  Layers are ``nn.Linear`` (weight [out, in]); the
 JAX package stores ``w`` as [in, out] and computes ``x @ w + b``, so
 ``weights.deformation_from_numpy`` transposes on load.
+
+``param_groups`` splits the parameters into the reference's two
+optimizer groups: ``grid`` (the hexplane planes) and ``deformation``
+(everything else), as ``s3gaussian_tpu/train/optim.py:72-86`` maps them.
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ class DeformationField(nn.Module):
     attributes."""
 
     def __init__(self, hp: ModelHiddenParams, generator: torch.Generator,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         self.hp = hp
         w = hp.net_width
@@ -88,6 +92,16 @@ class DeformationField(nn.Module):
         self.empty_voxel = (nn.Parameter(torch.ones(1, 64, 64, 64,
                                                     device=device))
                             if hp.empty_voxel else None)
+
+    def param_groups(self) -> dict[str, dict[str, nn.Parameter]]:
+        """{"grid": {name: p}, "deformation": {name: p}} over
+        ``named_parameters()`` names."""
+        groups: dict[str, dict[str, nn.Parameter]] = {"grid": {},
+                                                       "deformation": {}}
+        for name, p in self.named_parameters():
+            groups["grid" if name.startswith("grid.")
+                   else "deformation"][name] = p
+        return groups
 
     def forward(self, xyz: torch.Tensor, scales: torch.Tensor,
                 rotations: torch.Tensor, opacity: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Multi-resolution hexplane (K-Planes) spacetime encoder (port of
-``s3gaussian_tpu/models/hexplane.py``, forward only).
+"""Multi-resolution hexplane (K-Planes) spacetime encoder and its
+regularizers (port of ``s3gaussian_tpu/models/hexplane.py``).
 
 6 planes per scale = C(4,2) coordinate pairs over (x, y, z, t); spatial
 planes init U(0.1, 0.5), time planes init to 1; per-scale feature = the
@@ -21,12 +21,14 @@ from s3gaussian_tpu_torch.ops.gridsample import (grid_sample_2d,
 
 COO_COMBS = tuple(itertools.combinations(range(4), 2))
 # = ((0,1),(0,2),(0,3),(1,2),(1,3),(2,3)); planes 2,4,5 involve time
+SPATIAL_PLANES = (0, 1, 3)
+TIME_PLANES = (2, 4, 5)
 
 
 def init_hexplane(generator: torch.Generator, out_dim: int = 32,
                   resolution: Sequence[int] = (64, 64, 64, 25),
                   multires: Sequence[int] = (1, 2, 4, 8),
-                  device: torch.device | str = "cpu") -> nn.ParameterDict:
+                  device: torch.device | str = "cuda") -> nn.ParameterDict:
     """Plane (scale s, pair i): [out_dim, reso[c1]*m, reso[c0]*m], the
     multiplier m on spatial dims only.  ``generator`` is a CPU generator;
     the planes are drawn on the CPU and moved to ``device``."""
@@ -78,3 +80,46 @@ def query_hexplane(params: nn.ParameterDict, pts: torch.Tensor,
             acc = v if acc is None else acc * v
         feats.append(acc.to(torch.float32))
     return torch.cat(feats, -1)
+
+
+# --- regularizers (reference gaussian_model.py:710-749, regulation.py:22-28)
+
+def _plane_smoothness(p: torch.Tensor) -> torch.Tensor:
+    """Mean squared second difference along the plane's row axis (the
+    pair's second coordinate: time for the spatiotemporal planes)."""
+    d1 = p[:, 1:, :] - p[:, :-1, :]
+    d2 = d1[:, 1:, :] - d1[:, :-1, :]
+    return torch.mean(torch.square(d2))
+
+
+def plane_tv(params, n_scales: int) -> torch.Tensor:
+    """Smoothness over the three spatial planes (_plane_regulation)."""
+    return sum(_plane_smoothness(params[f"scale{s}_plane{i}"])
+               for s in range(n_scales) for i in SPATIAL_PLANES)
+
+
+def time_smoothness(params, n_scales: int) -> torch.Tensor:
+    """Smoothness over the three spatiotemporal planes (_time_regulation)."""
+    return sum(_plane_smoothness(params[f"scale{s}_plane{i}"])
+               for s in range(n_scales) for i in TIME_PLANES)
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's derivative: +1 at x == 0 (``torch.abs`` gives 0).
+    The time planes start at exactly 1, so at 0 is where l1_time starts."""
+    return torch.where(x >= 0, x, -x)
+
+
+def l1_time(params, n_scales: int) -> torch.Tensor:
+    """mean |1 - plane| over the spatiotemporal planes (_l1_regulation)."""
+    return sum(torch.mean(_abs(1.0 - params[f"scale{s}_plane{i}"]))
+               for s in range(n_scales) for i in TIME_PLANES)
+
+
+def compute_regulation(params, n_scales: int, time_smoothness_weight: float,
+                       l1_time_weight: float,
+                       plane_tv_weight: float) -> torch.Tensor:
+    """The weighting of reference gaussian_model.py:745-749."""
+    return (plane_tv_weight * plane_tv(params, n_scales)
+            + time_smoothness_weight * time_smoothness(params, n_scales)
+            + l1_time_weight * l1_time(params, n_scales))

@@ -1,13 +1,15 @@
 """Fixed-capacity Gaussian pool (port of ``s3gaussian_tpu/models/pool.py``).
 
 The pool keeps the JAX package's fixed capacity with an ``alive`` mask:
-parameters are raw (pre-activation) tensors [Nc, ...].  Density control
-(clone, split, prune) is not ported yet (ROADMAP.md).
+parameters are raw (pre-activation) tensors [Nc, ...].  ``PoolStats``
+accumulates the densification statistics; density control itself (clone,
+split, prune) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict
 
 import numpy as np
 import torch
@@ -43,10 +45,51 @@ class GaussianPool:
     def get_features(self) -> torch.Tensor:
         return torch.cat([self.features_dc, self.features_rest], 1)
 
+    def param_dict(self) -> Dict[str, torch.Tensor]:
+        """The trainable tensors, named like the reference's param groups."""
+        return {"xyz": self.xyz, "f_dc": self.features_dc,
+                "f_rest": self.features_rest, "scaling": self.scaling,
+                "rotation": self.rotation, "opacity": self.opacity}
+
+    def with_params(self, p: Dict[str, torch.Tensor]) -> "GaussianPool":
+        return GaussianPool(xyz=p["xyz"], features_dc=p["f_dc"],
+                            features_rest=p["f_rest"], scaling=p["scaling"],
+                            rotation=p["rotation"], opacity=p["opacity"],
+                            alive=self.alive)
+
+
+@dataclass
+class PoolStats:
+    """Densification bookkeeping (reference gaussian_model.py:50-69)."""
+
+    max_radii2d: torch.Tensor      # [Nc] float
+    xyz_grad_accum: torch.Tensor   # [Nc] accumulated |grad(mean2D_ndc)|
+    denom: torch.Tensor            # [Nc]
+
+    @staticmethod
+    def zeros(capacity: int, device: torch.device | str = "cuda"
+              ) -> "PoolStats":
+        return PoolStats(*(torch.zeros(capacity, device=device)
+                           for _ in range(3)))
+
+
+def add_densification_stats(stats: PoolStats, mean2d_grad: torch.Tensor,
+                            radii: torch.Tensor,
+                            visible: torch.Tensor) -> PoolStats:
+    """Accumulate |grad(mean2D_ndc)| and the max screen radius over the
+    visible gaussians (reference gaussian_model.py:693-695)."""
+    norm = torch.linalg.norm(mean2d_grad[:, :2], dim=-1)
+    return PoolStats(
+        max_radii2d=torch.where(
+            visible, torch.maximum(stats.max_radii2d, radii.to(torch.float32)),
+            stats.max_radii2d),
+        xyz_grad_accum=stats.xyz_grad_accum + torch.where(visible, norm, 0.0),
+        denom=stats.denom + visible.to(torch.float32))
+
 
 def create_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
                     max_sh_degree: int = 3,
-                    device: torch.device | str = "cpu") -> GaussianPool:
+                    device: torch.device | str = "cuda") -> GaussianPool:
     """Initialize from a (LiDAR) point cloud: DC features from RGB2SH,
     scale = log sqrt(mean 3-NN dist²) clamped >= 1e-7, identity quats,
     opacity = inv_sigmoid(0.1); dead slots get identity quats and logit

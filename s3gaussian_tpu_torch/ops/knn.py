@@ -1,15 +1,62 @@
 """Mean squared 3-nearest-neighbour distance for Gaussian size init (port of
 ``s3gaussian_tpu/ops/knn.py``).
 
-Above 4,096 points it calls the multithreaded C++ library through
-``s3gaussian_tpu.native`` (jax-free); otherwise, or when that library
-cannot be built, the numpy Morton-window search below, copied from the
-JAX package (whose ``ops`` package imports jax).  Init-only host code.
+Above 4,096 points it calls ``knn_mean_dist2`` of the multithreaded C++
+library ``native/libs3g_native.so`` (built from ``native/s3g_native.cpp``
+beside the packages, with ``make -C native``) through its own small
+``ctypes`` loader; otherwise, or when that library cannot be built, the
+numpy Morton-window search below.  Init-only host code.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import subprocess
+from pathlib import Path
+from typing import Optional
+
 import numpy as np
+
+_NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+
+
+def _native() -> Optional[ctypes.CDLL]:
+    """The native library, built on first use; None when it cannot be."""
+    global _lib, _tried
+    if _tried:
+        return _lib
+    _tried = True
+    path = _NATIVE_DIR / "libs3g_native.so"
+    if not path.exists():
+        try:
+            subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
+                           capture_output=True, timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            return None
+    if not path.exists():
+        return None
+    lib = ctypes.CDLL(str(path))
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.knn_mean_dist2.argtypes = [f32p, ctypes.c_int64, ctypes.c_int,
+                                   ctypes.c_int, f32p, ctypes.c_int]
+    _lib = lib
+    return lib
+
+
+def _native_knn(points: np.ndarray, k: int, window: int
+                ) -> Optional[np.ndarray]:
+    lib = _native()
+    if lib is None:
+        return None
+    pts = np.ascontiguousarray(points, np.float32)
+    out = np.empty(len(pts), np.float32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.knn_mean_dist2(pts.ctypes.data_as(f32p), len(pts), k, window,
+                       out.ctypes.data_as(f32p), min(os.cpu_count() or 1, 16))
+    return out
 
 
 def _morton30(p: np.ndarray) -> np.ndarray:
@@ -34,8 +81,7 @@ def mean_knn_dist2(points: np.ndarray, k: int = 3,
     points = np.asarray(points, dtype=np.float32)
     n = points.shape[0]
     if n > 4096:
-        from s3gaussian_tpu import native
-        res = native.knn_mean_dist2(points, k=k, window=window)
+        res = _native_knn(points, k, window)
         if res is not None:
             return res
     if n <= k:

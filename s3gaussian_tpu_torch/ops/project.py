@@ -62,11 +62,16 @@ def project_gaussians(
     height: int,
     tile_x: int = 16,
     tile_y: int = 16,
+    mean2d_tap: Optional[torch.Tensor] = None,
     alive: Optional[torch.Tensor] = None,
     radius_margin: float = 0.0,
     opacities: Optional[torch.Tensor] = None,
 ) -> ProjectedGaussians:
     """Project Gaussians into screen space.
+
+    ``mean2d_tap`` ([N,2] zeros) is added to the NDC centre, so its
+    gradient is the NDC screen gradient the reference accumulates for the
+    densification statistics (train.py:435-437).
 
     ``opacities`` ([N] or [N,1], activated) enables the tight rect: the
     tile rectangle becomes the bbox of the alpha-cutoff ellipse
@@ -83,6 +88,8 @@ def project_gaussians(
     p_hom = p_hom4 @ proj
     p_w = 1.0 / (p_hom[..., 3] + 1e-7)
     ndc_xy = p_hom[..., :2] * p_w[..., None]
+    if mean2d_tap is not None:
+        ndc_xy = ndc_xy + mean2d_tap
     sizes = torch.tensor([width, height], dtype=means3d.dtype,
                          device=means3d.device)
     xy = ((ndc_xy + 1.0) * sizes - 1.0) * 0.5

@@ -1,4 +1,4 @@
-"""Gaussian rasterizer, forward only (port of
+"""Differentiable Gaussian rasterizer (port of
 ``s3gaussian_tpu/ops/rasterizer.py::rasterize``).
 
 Dataflow, in three stages that ``chip_smoke.py`` also times one by one:
@@ -7,11 +7,16 @@ Dataflow, in three stages that ``chip_smoke.py`` also times one by one:
   detached inputs → [16, N] feature rows;
   ``sort_stream``: ONE stable (key, slot) sort → ONE gather of the 10
   data rows at ``slot // rect_cap`` → tile ranges;
-  ``tile_kernels.composite_fwd``: the CUDA compositor (plain PyTorch on
-  CPU tensors) → ``unpack_tiles`` → ``color = rgb + final_T·bg``.
+  ``tile_kernels.CompositeTiles``: the CUDA compositors, forward and
+  backward (plain PyTorch on CPU tensors) → ``unpack_tiles`` →
+  ``color = rgb + final_T·bg``.
 
-The backward compositor and autograd through the rasterizer are not
-ported yet (ROADMAP.md), so ``rasterize`` runs without gradient tracking.
+Keys, the sort and the tile ranges are computed on detached tensors.  The
+gather stays differentiable: its backward sums the per-pair gradients of
+the backward compositor into the render set and the pool, which replaces
+the JAX package's un-sort and rect-axis reshape-sum (a TPU layout
+choice).  Slots past ``n_pairs`` get zero gradient from the kernel.
+Every other gradient (EWA projection, covariance, SH) is autograd.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from s3gaussian_tpu_torch.ops.binning import (PairKeys, make_pair_keys,
                                               sort_pairs, tile_ranges)
 from s3gaussian_tpu_torch.ops.project import (ProjectedGaussians, build_cov3d,
                                               project_gaussians, sh_to_color)
-from s3gaussian_tpu_torch.ops.tile_kernels import composite_fwd
+from s3gaussian_tpu_torch.ops.tile_kernels import CompositeTiles
 
 
 class RasterSettings(NamedTuple):
@@ -59,7 +64,8 @@ def project_and_key(settings: RasterSettings, means3d: torch.Tensor,
                     colors_precomp: Optional[torch.Tensor] = None,
                     cov3d_precomp: Optional[torch.Tensor] = None,
                     alive: Optional[torch.Tensor] = None,
-                    cfg: RasterConfig = RasterConfig()
+                    cfg: RasterConfig = RasterConfig(),
+                    mean2d_tap: Optional[torch.Tensor] = None
                     ) -> tuple[ProjectedGaussians, PairKeys, torch.Tensor]:
     """Stage 1: projection, colours and unsorted pair keys.
     Returns (proj, pair keys, feat_pool [16, N])."""
@@ -70,7 +76,8 @@ def project_and_key(settings: RasterSettings, means3d: torch.Tensor,
         means3d, cov3d, settings.viewmatrix, settings.projmatrix,
         settings.tanfovx, settings.tanfovy, settings.image_width,
         settings.image_height, tile_x=cfg.tile_x, tile_y=cfg.tile_y,
-        alive=alive, opacities=opacities if cfg.tight_rect else None)
+        mean2d_tap=mean2d_tap, alive=alive,
+        opacities=opacities if cfg.tight_rect else None)
     colors = (sh_to_color(shs, means3d, settings.campos, settings.sh_degree)
               if colors_precomp is None else colors_precomp)
     pk = make_pair_keys(
@@ -104,7 +111,6 @@ def sort_stream(feat_pool: torch.Tensor, pk: PairKeys, n_tiles: int,
     return stream, tile_starts, n_pairs, overflow_pairs
 
 
-@torch.no_grad()
 def rasterize(settings: RasterSettings, means3d: torch.Tensor,
               opacities: torch.Tensor,
               scales: Optional[torch.Tensor] = None,
@@ -112,19 +118,21 @@ def rasterize(settings: RasterSettings, means3d: torch.Tensor,
               shs: Optional[torch.Tensor] = None,
               colors_precomp: Optional[torch.Tensor] = None,
               cov3d_precomp: Optional[torch.Tensor] = None,
+              mean2d_tap: Optional[torch.Tensor] = None,
               alive: Optional[torch.Tensor] = None,
               cfg: RasterConfig = RasterConfig()):
     """Render one view from activated inputs.  Returns
-    (color [3,H,W], radii [N], depth [H,W], aux)."""
+    (color [3,H,W], radii [N], depth [H,W], aux); differentiable with
+    respect to every float input and ``mean2d_tap``."""
     h, w = settings.image_height, settings.image_width
     grid_x, grid_y = grid_dims(settings, cfg)
     proj, pk, feat_pool = project_and_key(
         settings, means3d, opacities, scales, rotations, shs, colors_precomp,
-        cov3d_precomp, alive, cfg)
+        cov3d_precomp, alive, cfg, mean2d_tap)
     stream, tile_starts, n_pairs, overflow_pairs = sort_stream(
         feat_pool, pk, grid_x * grid_y, cfg.rect_cap, cfg.pair_budget)
-    out = composite_fwd(stream, tile_starts, grid_x, grid_y, cfg.tile_x,
-                        cfg.tile_y)
+    out = CompositeTiles.apply(stream, tile_starts, grid_x, grid_y,
+                               cfg.tile_x, cfg.tile_y)
     maps = comp.unpack_tiles(out, h, w, grid_x, grid_y, cfg.tile_x,
                              cfg.tile_y)
     color = maps["rgb"] + maps["final_T"][None] * settings.bg[:, None, None]

@@ -1,11 +1,15 @@
-"""The forward tile compositor: CUDA kernel ``csrc/composite_fwd.cu`` and
-its wrapper (port of ``s3gaussian_tpu/ops/tile_kernels.py::composite_fwd_pallas``).
+"""The tile compositor's CUDA kernels, their wrappers and the autograd
+function around them (port of ``s3gaussian_tpu/ops/tile_kernels.py``:
+``composite_fwd_pallas`` → ``csrc/composite_fwd.cu``,
+``composite_bwd_pallas`` → ``csrc/composite_bwd.cu``).
 
-The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
+Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C entry point, keyed by a hash of its source,
 under ``build/s3gaussian_tpu_torch/`` beside the package, and loaded with
-``ctypes``.  A CUDA tensor launches the kernel or raises; only a CPU
-tensor takes the plain version, ``composite.composite_tiles_torch``.
+``ctypes``; ``build()`` starts one ``nvcc`` per source, all at once.  A
+CUDA tensor launches the kernel or raises; only a CPU tensor takes the
+plain version (``composite.composite_tiles_torch`` /
+``composite.composite_tiles_bwd_torch``).
 """
 
 from __future__ import annotations
@@ -16,22 +20,27 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
 import torch
 
 from s3gaussian_tpu_torch.ops.composite import (N_OUT_ROWS, PAIR_FEAT_DIM,
+                                                composite_tiles_bwd_torch,
                                                 composite_tiles_torch)
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "composite_fwd.cu"
+SOURCES = {"composite_fwd": _PKG / "csrc" / "composite_fwd.cu",
+           "composite_bwd": _PKG / "csrc" / "composite_bwd.cu"}
+HEADER = _PKG / "csrc" / "composite_common.cuh"   # included by both
 BUILD_DIR = _PKG.parent / "build" / "s3gaussian_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches made by composite_fwd (the CPU path does not count)
+# kernel launches made by composite_fwd / composite_bwd (CPU calls do not
+# count)
 launches = 0
-_lib: Optional[ctypes.CDLL] = None
+bwd_launches = 0
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -46,51 +55,64 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + HEADER.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"composite_fwd_{digest[:16]}.so"
+    return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
-def build() -> str:
-    """Compile the kernel unless a library for this source exists.
-    Returns nvcc's output (registers, shared memory, spills per kernel),
-    or "" when the library was already built."""
-    so = library_path()
-    if so.exists():
-        return ""
+def build() -> Dict[str, str]:
+    """Compile every kernel whose library for this source does not exist,
+    one ``nvcc`` per source, started together.  Returns nvcc's output
+    (registers, shared memory, spills) per kernel, "" where the library
+    was already built."""
+    todo = {name: library_path(name) for name in SOURCES
+            if not library_path(name).exists()}
+    logs = {name: "" for name in SOURCES}
+    if not todo:
+        return logs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    procs = {}
+    for name, so in todo.items():
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, so, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, so, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc {SOURCES[name].name} failed "
+                          f"({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _libs:
         build()
-        lib = ctypes.CDLL(str(library_path()))
-        lib.composite_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.composite_fwd.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        lib = ctypes.CDLL(str(library_path(name)))
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fn = getattr(lib, name)
+        if name == "composite_fwd":
+            fn.argtypes = [ptr, i64, ptr, ptr, i32, i32, i32, i32, ptr]
+        else:
+            fn.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                           ptr]
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
 
 
-def composite_fwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
-                  grid_x: int, grid_y: int, tile_x: int,
-                  tile_y: int) -> torch.Tensor:
-    """pair_feat [16, M] float32 (feature-major sorted pair stream),
-    tile_starts [T+1] int32 -> [T, 8, P] float32."""
+def _check_stream(name: str, pair_feat: torch.Tensor,
+                  tile_starts: torch.Tensor, grid_x: int, grid_y: int,
+                  tile_x: int, tile_y: int) -> None:
     n_tiles = grid_x * grid_y
-    p = tile_x * tile_y
     if pair_feat.dim() != 2 or pair_feat.shape[0] != PAIR_FEAT_DIM:
         raise ValueError(f"pair_feat must be [{PAIR_FEAT_DIM}, M], got "
                          f"{tuple(pair_feat.shape)}")
@@ -99,24 +121,41 @@ def composite_fwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
                          f"{tuple(tile_starts.shape)}")
     if pair_feat.device != tile_starts.device:
         raise ValueError("pair_feat and tile_starts on different devices")
-    if pair_feat.device.type == "cpu":
-        return composite_tiles_torch(pair_feat, tile_starts, grid_x, grid_y,
-                                     tile_x, tile_y)
-    if pair_feat.device.type != "cuda":
-        raise ValueError(f"composite_fwd runs on CPU or CUDA tensors, not "
+    if pair_feat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not "
                          f"{pair_feat.device}")
-    if pair_feat.dtype != torch.float32 or tile_starts.dtype != torch.int32:
-        raise TypeError(f"composite_fwd takes float32 pair_feat and int32 "
-                        f"tile_starts, got {pair_feat.dtype} and "
+
+
+def _check_launch(name: str, tensors, tile_starts: torch.Tensor,
+                  p: int) -> None:
+    if (any(t.dtype != torch.float32 for t in tensors)
+            or tile_starts.dtype != torch.int32):
+        raise TypeError(f"{name} takes float32 tensors and int32 "
+                        f"tile_starts, got "
+                        f"{[t.dtype for t in tensors]} and "
                         f"{tile_starts.dtype}")
-    if not (pair_feat.is_contiguous() and tile_starts.is_contiguous()):
-        raise ValueError("composite_fwd takes contiguous tensors")
+    if not all(t.is_contiguous() for t in (*tensors, tile_starts)):
+        raise ValueError(f"{name} takes contiguous tensors")
     if not 0 < p <= 1024:
         raise ValueError(f"tile of {p} pixels: the kernel runs one thread "
                          f"per pixel, at most 1024")
-    out = torch.empty(n_tiles, N_OUT_ROWS, p, dtype=torch.float32,
+
+
+def composite_fwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
+                  grid_x: int, grid_y: int, tile_x: int,
+                  tile_y: int) -> torch.Tensor:
+    """pair_feat [16, M] float32 (feature-major sorted pair stream),
+    tile_starts [T+1] int32 -> [T, 8, P] float32."""
+    _check_stream("composite_fwd", pair_feat, tile_starts, grid_x, grid_y,
+                  tile_x, tile_y)
+    if pair_feat.device.type == "cpu":
+        return composite_tiles_torch(pair_feat, tile_starts, grid_x, grid_y,
+                                     tile_x, tile_y)
+    p = tile_x * tile_y
+    _check_launch("composite_fwd", (pair_feat,), tile_starts, p)
+    out = torch.empty(grid_x * grid_y, N_OUT_ROWS, p, dtype=torch.float32,
                       device=pair_feat.device)
-    lib = _load()
+    lib = _load("composite_fwd")
     with torch.cuda.device(pair_feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.composite_fwd(pair_feat.data_ptr(), pair_feat.shape[1],
@@ -128,3 +167,66 @@ def composite_fwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+def composite_bwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
+                  out: torch.Tensor, dout: torch.Tensor, grid_x: int,
+                  grid_y: int, tile_x: int, tile_y: int) -> torch.Tensor:
+    """The compositor's VJP: pair_feat [16, M], tile_starts [T+1], the
+    forward output ``out`` and its cotangent ``dout`` [T, 8, P] ->
+    per-pair gradients [16, M] in sorted-pair order (rows 10-15, slots
+    past the last tile range and pairs after an early exit are 0)."""
+    _check_stream("composite_bwd", pair_feat, tile_starts, grid_x, grid_y,
+                  tile_x, tile_y)
+    p = tile_x * tile_y
+    want = (grid_x * grid_y, N_OUT_ROWS, p)
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {list(want)}, got "
+                             f"{tuple(t.shape)}")
+        if t.device != pair_feat.device:
+            raise ValueError(f"{name} is on {t.device}, pair_feat on "
+                             f"{pair_feat.device}")
+    if pair_feat.device.type == "cpu":
+        return composite_tiles_bwd_torch(pair_feat, tile_starts, out, dout,
+                                         grid_x, grid_y, tile_x, tile_y)
+    _check_launch("composite_bwd", (pair_feat, out, dout), tile_starts, p)
+    grads = torch.zeros(PAIR_FEAT_DIM, pair_feat.shape[1],
+                        dtype=torch.float32, device=pair_feat.device)
+    lib = _load("composite_bwd")
+    with torch.cuda.device(pair_feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.composite_bwd(pair_feat.data_ptr(), pair_feat.shape[1],
+                                tile_starts.data_ptr(), out.data_ptr(),
+                                dout.data_ptr(), grads.data_ptr(), grid_x,
+                                grid_y, tile_x, tile_y, stream)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    global bwd_launches
+    bwd_launches += 1
+    return grads
+
+
+class CompositeTiles(torch.autograd.Function):
+    """``composite_fwd`` with ``composite_bwd`` as its backward.  The
+    gradient flows to ``pair_feat`` only; rows 5-7 of the output (the
+    contributor count and padding) are not differentiable and their
+    cotangent is ignored."""
+
+    @staticmethod
+    def forward(ctx, pair_feat: torch.Tensor, tile_starts: torch.Tensor,
+                grid_x: int, grid_y: int, tile_x: int,
+                tile_y: int) -> torch.Tensor:
+        out = composite_fwd(pair_feat, tile_starts, grid_x, grid_y, tile_x,
+                            tile_y)
+        ctx.save_for_backward(pair_feat, tile_starts, out)
+        ctx.dims = (grid_x, grid_y, tile_x, tile_y)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        pair_feat, tile_starts, out = ctx.saved_tensors
+        grads = composite_bwd(pair_feat, tile_starts, out, dout.contiguous(),
+                              *ctx.dims)
+        return grads, None, None, None, None, None

@@ -1,11 +1,13 @@
 """Scene rendering (port of ``s3gaussian_tpu/render/renderer.py::render``),
-forward only.
+differentiable.
 
 The coarse stage rasterizes the raw pool; the fine stage routes the raw
 attributes through the deformation field first, then applies the
-activations.  Optional passes: the DINO feature head rendered as colours,
-and the dynamic/static decomposition, which re-renders the pool masked
-by |dx| > mean — alive-mask variations of the fixed-capacity pool.
+activations.  Optional passes: the DINO feature head rendered as colours
+(positions detached, as in JAX), and the dynamic/static decomposition,
+which re-renders the pool masked by |dx| > mean — alive-mask variations
+of the fixed-capacity pool.  ``mean2d_tap`` ([Nc,2] zeros) collects the
+NDC screen gradient of the main pass for the densification statistics.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ def make_settings(camera: Camera, bg: torch.Tensor, sh_degree: int,
         campos=camera.campos)
 
 
-@torch.no_grad()
 def render(camera: Camera, pool: GaussianPool,
            deform: Optional[DeformationField], pipe: PipelineParams,
            bg: torch.Tensor, aabb: Optional[torch.Tensor] = None,
@@ -41,6 +42,7 @@ def render(camera: Camera, pool: GaussianPool,
            override_color: Optional[torch.Tensor] = None,
            return_decomposition: bool = False, return_dx: bool = False,
            render_feat: bool = False,
+           mean2d_tap: Optional[torch.Tensor] = None,
            cfg: RasterConfig = RasterConfig()) -> Dict[str, Any]:
     """Render one camera.  Returns a dict with the reference's keys:
     render, depth, radii, visibility_filter, alive_work, raster_aux, and
@@ -82,14 +84,14 @@ def render(camera: Camera, pool: GaussianPool,
 
     settings = make_settings(camera, bg, active_sh_degree, scaling_modifier)
 
-    def rast(alive_mask, colors_precomp=colors):
-        return rasterize(settings, xyz_f, op_act, scales=scales_act,
+    def rast(alive_mask, means=xyz_f, colors_precomp=colors, tap=None):
+        return rasterize(settings, means, op_act, scales=scales_act,
                          rotations=rot_act,
                          shs=None if colors_precomp is not None else shs_f,
-                         colors_precomp=colors_precomp, alive=alive_mask,
-                         cfg=cfg)
+                         colors_precomp=colors_precomp, mean2d_tap=tap,
+                         alive=alive_mask, cfg=cfg)
 
-    color, radii, depth, aux = rast(pool.alive)
+    color, radii, depth, aux = rast(pool.alive, tap=mean2d_tap)
     result: Dict[str, Any] = {
         "render": color,
         "depth": depth,
@@ -100,7 +102,7 @@ def render(camera: Camera, pool: GaussianPool,
     }
 
     if render_feat and fine and feat is not None:
-        result["feat"] = rast(pool.alive, feat)[0]
+        result["feat"] = rast(pool.alive, xyz_f.detach(), feat)[0]
 
     if return_decomposition and dx is not None:
         mx = dx.abs().amax(1)

@@ -1,0 +1,255 @@
+"""The single-camera train step, coarse and fine (port of
+``s3gaussian_tpu/train/trainer.py``: ``TrainState``, ``init_state``,
+``reinit_optimizer``, ``lr_dict``, ``compute_loss``,
+``apply_param_update`` and ``train_step``).
+
+  loss = L1(rgb)
+       + λ_dx·mean|dx| + λ_dshs·mean|dshs|              (fine)
+       + λ_depth·masked-L2(normalized depth)
+       + hexplane TV/time/L1 regs                       (fine)
+       + λ_dssim·(1−SSIM)
+       + λ_feat·L2(feat, dino_gt)                       (fine, feat_head)
+
+A step is an eager call (``jit``, donation and ``lax.scan`` have no
+counterpart): render forward and backward through the CUDA compositors,
+the losses, dead-row gradient masking, the NaN watchdog, the scheduled
+per-group Adam and the densification statistics fed by the gradient of
+the ``mean2d_tap``.  The state's tensors are updated in place; the step
+returns the state with its new counters.  The scanned and multicam
+variants, density control and the opacity reset are not ported yet
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Tuple
+
+import torch
+
+from s3gaussian_tpu_torch.config import (ModelHiddenParams,
+                                         OptimizationParams, PipelineParams,
+                                         RasterConfig)
+from s3gaussian_tpu_torch.data.cameras import Camera
+from s3gaussian_tpu_torch.models import hexplane as hx
+from s3gaussian_tpu_torch.models.deformation import DeformationField
+from s3gaussian_tpu_torch.models.pool import (GaussianPool, PoolStats,
+                                              add_densification_stats)
+from s3gaussian_tpu_torch.render.renderer import render
+from s3gaussian_tpu_torch.train.losses import (depth_loss, l1_loss, l2_loss,
+                                               psnr, ssim)
+from s3gaussian_tpu_torch.train.lr import expon_lr
+from s3gaussian_tpu_torch.train.optim import (AdamState, adam_update,
+                                              init_adam, path_group)
+
+
+@dataclass
+class TrainState:
+    pool: GaussianPool
+    deform: DeformationField
+    adam: AdamState
+    stats: PoolStats
+    step: torch.Tensor        # [] int32
+    aabb: torch.Tensor        # [2,3] (max; min)
+    nan_skips: torch.Tensor   # [] int32
+
+
+def param_tree(pool: GaussianPool, deform: DeformationField
+               ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{"pool": pool.param_dict(), "deform": {name: parameter}}."""
+    return {"pool": pool.param_dict(),
+            "deform": dict(deform.named_parameters())}
+
+
+def init_state(pool: GaussianPool, deform: DeformationField,
+               aabb: torch.Tensor) -> TrainState:
+    dev = pool.xyz.device
+    return TrainState(pool=pool, deform=deform,
+                      adam=init_adam(param_tree(pool, deform)),
+                      stats=PoolStats.zeros(pool.capacity, dev),
+                      step=torch.zeros((), dtype=torch.int32, device=dev),
+                      aabb=aabb,
+                      nan_skips=torch.zeros((), dtype=torch.int32,
+                                            device=dev))
+
+
+def reinit_optimizer(state: TrainState) -> TrainState:
+    """A stage starts with fresh Adam moments, a stage-local step for the
+    schedules and zeroed densification statistics (reference
+    train.py:222, gaussian_model.py:181-185)."""
+    dev = state.pool.xyz.device
+    return replace(state, adam=init_adam(param_tree(state.pool,
+                                                    state.deform)),
+                   step=torch.zeros((), dtype=torch.int32, device=dev),
+                   stats=PoolStats.zeros(state.pool.capacity, dev))
+
+
+def lr_dict(step: torch.Tensor, opt: OptimizationParams,
+            spatial_lr_scale: float) -> Dict[str, torch.Tensor]:
+    """Scheduled per-group learning rates (gaussian_model.py:186-218),
+    0-d tensors on the step's device."""
+    s = spatial_lr_scale
+
+    def const(v):
+        return torch.tensor(v, dtype=torch.float32, device=step.device)
+
+    return {
+        "xyz": expon_lr(step, opt.position_lr_init * s,
+                        opt.position_lr_final * s,
+                        lr_delay_mult=opt.position_lr_delay_mult,
+                        max_steps=opt.position_lr_max_steps),
+        "deformation": expon_lr(step, opt.deformation_lr_init * s,
+                                opt.deformation_lr_final * s,
+                                lr_delay_mult=opt.deformation_lr_delay_mult,
+                                max_steps=opt.position_lr_max_steps),
+        "grid": expon_lr(step, opt.grid_lr_init * s, opt.grid_lr_final * s,
+                         lr_delay_mult=opt.deformation_lr_delay_mult,
+                         max_steps=opt.position_lr_max_steps),
+        "f_dc": const(opt.feature_lr),
+        "f_rest": const(opt.feature_lr / 20.0),
+        "opacity": const(opt.opacity_lr),
+        "scaling": const(opt.scaling_lr),
+        "rotation": const(opt.rotation_lr),
+    }
+
+
+def compute_loss(pool: GaussianPool, deform: DeformationField,
+                 tap: torch.Tensor, camera: Camera, stage: str,
+                 active_sh_degree: int, hp: ModelHiddenParams,
+                 opt: OptimizationParams, pipe: PipelineParams,
+                 aabb: torch.Tensor, bg: torch.Tensor, cfg: RasterConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The step's loss and aux (radii, visibility, budget counters and a
+    ``metrics`` dict of 0-d tensors)."""
+    fine = "fine" in stage
+    want_feat = fine and hp.feat_head and camera.feat_map is not None
+    pkg = render(camera, pool, deform if fine else None, pipe, bg, aabb,
+                 active_sh_degree, stage=stage, return_dx=True,
+                 render_feat=want_feat, mean2d_tap=tap, cfg=cfg)
+
+    gt = camera.image.permute(2, 0, 1)                  # [3,H,W]
+    loss = l1_loss(pkg["render"], gt)
+    metrics = {"l1": loss, "psnr": psnr(pkg["render"], gt)}
+
+    w_alive = pkg["alive_work"]
+    n_alive = torch.clamp(w_alive.sum(), min=1)
+    if fine and not hp.no_dx and opt.lambda_dx != 0:
+        dx_l = (torch.where(w_alive[:, None], torch.abs(pkg["dx"]), 0.0).sum()
+                / (n_alive * 3))
+        loss = loss + opt.lambda_dx * dx_l
+        metrics["dx"] = dx_l
+    if fine and not hp.no_dshs and opt.lambda_dshs != 0:
+        dshs_l = (torch.where(w_alive[:, None, None], torch.abs(pkg["dshs"]),
+                              0.0).sum() / (n_alive * 48))
+        loss = loss + opt.lambda_dshs * dshs_l
+    if opt.lambda_depth != 0 and camera.depth_map is not None:
+        dl = depth_loss(pkg["depth"], camera.depth_map, "l2")
+        loss = loss + opt.lambda_depth * dl
+        metrics["depth"] = dl
+    if fine and hp.time_smoothness_weight != 0:
+        reg = hx.compute_regulation(deform.grid, len(hp.multires),
+                                    hp.time_smoothness_weight,
+                                    hp.l1_time_planes, hp.plane_tv_weight)
+        loss = loss + reg
+        metrics["reg"] = reg
+    if opt.lambda_dssim != 0:
+        s = ssim(pkg["render"], gt)
+        loss = loss + opt.lambda_dssim * (1.0 - s)
+        metrics["ssim"] = s
+    if want_feat:
+        fl = l2_loss(pkg["feat"], camera.feat_map.permute(2, 0, 1)) \
+            * opt.lambda_feat
+        loss = loss + fl
+        metrics["feat"] = fl
+
+    metrics["loss"] = loss
+    aux = {"radii": pkg["radii"],
+           "visible": pkg["raster_aux"]["visible"],
+           "n_pairs": pkg["raster_aux"]["n_pairs"],
+           "overflow_rect": pkg["raster_aux"]["overflow_rect"],
+           "overflow_visible": pkg["raster_aux"]["overflow_visible"],
+           "overflow_pairs": pkg["raster_aux"]["overflow_pairs"],
+           "metrics": {k: v.detach() for k, v in metrics.items()}}
+    return loss, aux
+
+
+@torch.no_grad()
+def apply_param_update(state: TrainState, grads, tap_grad: torch.Tensor,
+                       loss: torch.Tensor, radii: torch.Tensor,
+                       visible: torch.Tensor, opt: OptimizationParams,
+                       spatial_lr_scale: float) -> TrainState:
+    """Post-gradient half of a step: dead-row gradient masking, the NaN
+    watchdog, the scheduled learning rates, Adam (in place) and the
+    densification statistics."""
+    # dead pool slots never move: their placeholder values keep all
+    # downstream math finite
+    alive = state.pool.alive
+    grads["pool"] = {
+        k: torch.where(alive.reshape((-1,) + (1,) * (v.dim() - 1)), v, 0.0)
+        for k, v in grads["pool"].items()}
+
+    # NaN watchdog: on a non-finite loss, zero the gradients AND the
+    # learning rates (stale momentum must not move parameters either) and
+    # gate the tap so one bad step cannot poison the statistics
+    finite = torch.isfinite(loss)
+    grads = {g: {k: torch.where(finite, v, 0.0) for k, v in d.items()}
+             for g, d in grads.items()}
+    tap_grad = torch.where(finite, tap_grad, 0.0)
+
+    fin = finite.to(torch.float32)
+    lrs = {k: v * fin for k, v in
+           lr_dict(state.step, opt, spatial_lr_scale).items()}
+    params = param_tree(state.pool, state.deform)
+    adam = adam_update(params, grads, state.adam,
+                       lambda group, name: lrs[path_group(group, name)])
+    stats = add_densification_stats(state.stats, tap_grad, radii, visible)
+    return replace(state, adam=adam, stats=stats, step=state.step + 1,
+                   nan_skips=state.nan_skips + (~finite).to(torch.int32))
+
+
+def step_forward(state: TrainState, camera: Camera, stage: str,
+                 active_sh_degree: int, hp: ModelHiddenParams,
+                 opt: OptimizationParams, pipe: PipelineParams,
+                 cfg: RasterConfig, bg: torch.Tensor):
+    """The forward half of a step: the loss over leaf views of the pool's
+    tensors, the field's parameters and a zero ``mean2d_tap``.
+    Returns (loss, aux, params tree, tap)."""
+    pool = state.pool.with_params({k: v.detach().requires_grad_(True)
+                                   for k, v in
+                                   state.pool.param_dict().items()})
+    tap = torch.zeros(pool.capacity, 2, device=pool.xyz.device,
+                      requires_grad=True)
+    loss, aux = compute_loss(pool, state.deform, tap, camera, stage,
+                             active_sh_degree, hp, opt, pipe, state.aabb,
+                             bg, cfg)
+    return loss, aux, param_tree(pool, state.deform), tap
+
+
+def step_gradients(loss: torch.Tensor, tree, tap: torch.Tensor):
+    """The backward half: gradients of every tensor of ``tree`` (zeros
+    where the loss does not reach it) and of the tap."""
+    leaves = [v for d in tree.values() for v in d.values()] + [tap]
+    flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+    flat = [torch.zeros_like(v) if g is None else g
+            for v, g in zip(leaves, flat)]
+    grads, i = {}, 0
+    for g, d in tree.items():
+        grads[g] = dict(zip(d, flat[i:i + len(d)]))
+        i += len(d)
+    return grads, flat[-1]
+
+
+def train_step(state: TrainState, camera: Camera, stage: str,
+               active_sh_degree: int, hp: ModelHiddenParams,
+               opt: OptimizationParams, pipe: PipelineParams,
+               cfg: RasterConfig, spatial_lr_scale: float, bg: torch.Tensor
+               ) -> Tuple[TrainState, Dict[str, Any]]:
+    """One optimizer step on one camera, stage "coarse" or "fine"."""
+    loss, aux, tree, tap = step_forward(state, camera, stage,
+                                        active_sh_degree, hp, opt, pipe, cfg,
+                                        bg)
+    grads, tap_grad = step_gradients(loss, tree, tap)
+    new_state = apply_param_update(state, grads, tap_grad, loss.detach(),
+                                   aux["radii"], aux["visible"], opt,
+                                   spatial_lr_scale)
+    return new_state, aux

@@ -5,7 +5,7 @@ weights (``jax.tree_util.tree_map(np.asarray, ...)`` on the JAX side).
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -13,14 +13,16 @@ from torch import nn
 
 from s3gaussian_tpu_torch.config import ModelHiddenParams
 from s3gaussian_tpu_torch.models.deformation import DeformationField
-from s3gaussian_tpu_torch.models.pool import GaussianPool
+from s3gaussian_tpu_torch.models.pool import GaussianPool, PoolStats
+from s3gaussian_tpu_torch.train.optim import AdamState
+from s3gaussian_tpu_torch.train.trainer import TrainState
 
 POOL_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
                "opacity", "alive")
 
 
 def pool_from_numpy(d: Mapping[str, np.ndarray],
-                    device: torch.device | str = "cpu") -> GaussianPool:
+                    device: torch.device | str = "cuda") -> GaussianPool:
     """``d`` maps the GaussianPool field names to arrays, e.g.
     ``vars(jax.tree_util.tree_map(np.asarray, pool))``."""
     return GaussianPool(**{k: torch.as_tensor(np.array(d[k]), device=device)
@@ -35,46 +37,106 @@ def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
     dst.copy_(src)
 
 
-def _load_linear(lin: nn.Linear, p: Mapping[str, np.ndarray],
-                 name: str) -> None:
-    # JAX computes x @ w + b with w [in, out]; nn.Linear holds [out, in]
-    _copy(lin.weight, np.asarray(p["w"]).T, name + ".w")
-    _copy(lin.bias, p["b"], name + ".b")
+def _linears(seq: nn.Sequential) -> List[nn.Linear]:
+    return [m for m in seq if isinstance(m, nn.Linear)]
 
 
-def _load_head(head: nn.Sequential, p: Mapping[str, Any], name: str) -> None:
-    linears = [m for m in head if isinstance(m, nn.Linear)]
-    for i, lin in enumerate(linears):
-        _load_linear(lin, p[f"l{i + 1}"], f"{name}.l{i + 1}")
+def _deform_leaves(field: DeformationField
+                   ) -> List[Tuple[str, Tuple[Any, ...], bool]]:
+    """(parameter name, JAX pytree path, transpose) for every parameter of
+    the field.  JAX computes x @ w + b with w [in, out]; nn.Linear holds
+    [out, in], hence the transpose."""
+    names = {id(p): n for n, p in field.named_parameters()}
+    leaves = [(names[id(p)], ("grid", k), False)
+              for k, p in field.grid.items()]
+
+    def linear(lin, path):
+        leaves.append((names[id(lin.weight)], path + ("w",), True))
+        leaves.append((names[id(lin.bias)], path + ("b",), False))
+
+    for i, lin in enumerate(_linears(field.feature_out)):
+        linear(lin, ("mlp", "feature_out", i))
+    heads = dict(field.heads.items())
+    if field.dino is not None:
+        heads["dino"] = field.dino
+    for name, head in heads.items():
+        for i, lin in enumerate(_linears(head)):
+            linear(lin, ("mlp", name, f"l{i + 1}"))
+    if field.empty_voxel is not None:
+        leaves.append(("empty_voxel", ("empty_voxel",), False))
+    return leaves
 
 
-@torch.no_grad()
-def deformation_from_numpy(tree: Mapping[str, Any], hp: ModelHiddenParams,
-                           device: torch.device | str = "cpu"
-                           ) -> DeformationField:
-    """``tree`` is the ``init_deformation`` pytree of the JAX package
-    ({"grid": {scale{s}_plane{i}}, "mlp": {...}, ["empty_voxel"]}) as numpy."""
-    field = DeformationField(hp, torch.Generator().manual_seed(0), device)
+def _at(tree: Any, path: Tuple[Any, ...]) -> np.ndarray:
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def _check_structure(tree: Mapping[str, Any], field: DeformationField):
     grid = tree["grid"]
     if set(grid) != set(field.grid.keys()):
         raise ValueError(f"hexplane keys differ: {sorted(grid)} vs "
                          f"{sorted(field.grid.keys())}")
-    for k, v in grid.items():
-        _copy(field.grid[k], v, f"grid.{k}")
     mlp = tree["mlp"]
     want = set(field.heads) | {"feature_out"} | (
         {"dino"} if field.dino is not None else set())
     if set(mlp) != want:
         raise ValueError(f"MLP heads differ: {sorted(mlp)} vs {sorted(want)}")
-    fo =[m for m in field.feature_out if isinstance(m, nn.Linear)]
-    if len(fo) != len(mlp["feature_out"]):
+    if len(_linears(field.feature_out)) != len(mlp["feature_out"]):
         raise ValueError("feature_out depth differs")
-    for i, (lin, p) in enumerate(zip(fo, mlp["feature_out"])):
-        _load_linear(lin, p, f"feature_out.{i}")
-    for name, head in field.heads.items():
-        _load_head(head, mlp[name], name)
-    if field.dino is not None:
-        _load_head(field.dino, mlp["dino"], "dino")
-    if field.empty_voxel is not None:
-        _copy(field.empty_voxel, tree["empty_voxel"], "empty_voxel")
+
+
+def _deform_arrays(tree: Mapping[str, Any], field: DeformationField
+                   ) -> List[Tuple[str, np.ndarray]]:
+    """(parameter name, array in the port's layout) for every parameter,
+    from a pytree shaped like the JAX field's params."""
+    _check_structure(tree, field)
+    return [(name, _at(tree, path).T if transpose else _at(tree, path))
+            for name, path, transpose in _deform_leaves(field)]
+
+
+@torch.no_grad()
+def deformation_from_numpy(tree: Mapping[str, Any], hp: ModelHiddenParams,
+                           device: torch.device | str = "cuda"
+                           ) -> DeformationField:
+    """``tree`` is the ``init_deformation`` pytree of the JAX package
+    ({"grid": {scale{s}_plane{i}}, "mlp": {...}, ["empty_voxel"]}) as numpy."""
+    field = DeformationField(hp, torch.Generator().manual_seed(0), device)
+    params = dict(field.named_parameters())
+    for name, arr in _deform_arrays(tree, field):
+        _copy(params[name], arr, name)
     return field
+
+
+def train_state_from_numpy(tree: Any, hp: ModelHiddenParams,
+                           device: torch.device | str = "cuda"
+                           ) -> TrainState:
+    """A JAX ``TrainState`` passed through
+    ``jax.tree_util.tree_map(np.asarray, ...)`` -> the port's TrainState:
+    pool, field, Adam moments and count, PoolStats, step, aabb and the
+    watchdog's count.  Moments keep the port's layout: ``pool`` by the
+    pool's group names, ``deform`` by parameter name."""
+    pool = pool_from_numpy(vars(tree.pool), device)
+    field = deformation_from_numpy(tree.deform, hp, device)
+    params = dict(field.named_parameters())
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    def moments(m):
+        deform = {}
+        for name, arr in _deform_arrays(m["deform"], field):
+            deform[name] = torch.zeros_like(params[name])
+            _copy(deform[name], arr, name)
+        return {"pool": {k: t(v) for k, v in m["pool"].items()},
+                "deform": deform}
+
+    adam = AdamState(mu=moments(tree.adam.mu), nu=moments(tree.adam.nu),
+                     count=t(tree.adam.count, torch.int32))
+    stats = PoolStats(max_radii2d=t(tree.stats.max_radii2d),
+                      xyz_grad_accum=t(tree.stats.xyz_grad_accum),
+                      denom=t(tree.stats.denom))
+    return TrainState(pool=pool, deform=field, adam=adam, stats=stats,
+                      step=t(tree.step, torch.int32), aabb=t(tree.aabb),
+                      nan_skips=t(tree.nan_skips, torch.int32))

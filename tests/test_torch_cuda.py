@@ -1,4 +1,5 @@
-"""The CUDA forward compositor vs its plain PyTorch version, on the card.
+"""The CUDA compositors, forward and backward, vs their plain PyTorch
+versions, on the card.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports neither jax nor the JAX package, so that on a GPU machine without
@@ -7,7 +8,8 @@ jax it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances are those of ``tests/test_tile_kernels.py``: rgb/depth atol
-5e-4 rtol 1e-4, final_T atol 2e-4, n_contrib within 1.
+5e-4 rtol 1e-4, final_T atol 2e-4, n_contrib within 1; per-pair
+gradients atol 1e-5·max|plain|, rtol 1e-4.
 """
 
 import math
@@ -18,7 +20,8 @@ import torch
 
 from s3gaussian_tpu_torch.config import RasterConfig
 from s3gaussian_tpu_torch.ops import tile_kernels as tk
-from s3gaussian_tpu_torch.ops.composite import composite_tiles_torch
+from s3gaussian_tpu_torch.ops.composite import (composite_tiles_bwd_torch,
+                                                composite_tiles_torch)
 from s3gaussian_tpu_torch.ops.rasterizer import (RasterSettings,
                                                  project_and_key, sort_stream)
 from s3gaussian_tpu_torch.ops.transforms import projection_matrix
@@ -87,6 +90,40 @@ def test_cuda_kernel_matches_plain(cuda_device, seed, n, opacity_range, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,opacity_range,tile", [
+    (0, 150, (0.2, 0.95), 16),
+    (1, 300, (0.9, 0.99), 16),      # near-opaque: the whole-tile early exit
+    (2, 150, (0.2, 0.95), 8),       # 64-thread blocks, partial batches
+    (3, 100, (0.2, 0.95), 5),       # 25 pixels: a partial warp
+])
+def test_cuda_backward_kernel_matches_plain(cuda_device, seed, n,
+                                            opacity_range, tile):
+    """Per-pair gradients at the tolerance of tests/test_tile_kernels.py:
+    atol 1e-5·max|plain|, rtol 1e-4; exact zeros where nothing is written."""
+    stream, starts, gx, gy = sorted_stream(cuda_device, seed, n,
+                                           opacity_range, tile)
+    out = tk.composite_fwd(stream, starts, gx, gy, tile, tile)
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    dout = torch.randn(out.shape, generator=gen, device=cuda_device)
+    dout[:, 5:] = 0.0
+    before = tk.bwd_launches
+    got = tk.composite_bwd(stream, starts, out, dout, gx, gy, tile, tile)
+    torch.cuda.synchronize()
+    assert tk.bwd_launches == before + 1
+    want = composite_tiles_bwd_torch(stream, starts, out, dout, gx, gy, tile,
+                                     tile)
+    n_pairs = int(starts[-1])
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    scale = max(np.abs(want[:, :n_pairs]).max(), 1e-6)
+    np.testing.assert_allclose(got[:, :n_pairs], want[:, :n_pairs],
+                               atol=1e-5 * scale, rtol=1e-4)
+    np.testing.assert_array_equal(got[:, n_pairs:], 0.0)
+    np.testing.assert_array_equal(got[10:], 0.0)
+    again = tk.composite_bwd(stream, starts, out, dout, gx, gy, tile, tile)
+    np.testing.assert_array_equal(again.cpu().numpy(), got)   # no atomics
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     stream, starts, gx, gy = sorted_stream(cuda_device, 0, 50, (0.2, 0.9), 16)
     with pytest.raises(TypeError):
@@ -101,3 +138,13 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):        # 48x48 = 2,304 threads per block
         tk.composite_fwd(stream, starts[:3], 2, 1, 48, 48)
     assert tk.launches == before
+    out = tk.composite_fwd(stream, starts, gx, gy, 16, 16)
+    before = tk.bwd_launches
+    with pytest.raises(TypeError):
+        tk.composite_bwd(stream, starts, out, out.double(), gx, gy, 16, 16)
+    with pytest.raises(ValueError):
+        tk.composite_bwd(stream, starts, out, out.transpose(1, 2)
+                         .contiguous().transpose(1, 2), gx, gy, 16, 16)
+    with pytest.raises(ValueError):
+        tk.composite_bwd(stream, starts, out, out.cpu(), gx, gy, 16, 16)
+    assert tk.bwd_launches == before

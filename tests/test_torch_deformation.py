@@ -93,8 +93,8 @@ def test_query_hexplane_matches_jax(bf16, scalar_t):
 def test_init_matches_jax_shapes_and_is_seeded():
     hp = ModelHiddenParams(**TINY)
     tree = jdef.init_deformation(jax.random.PRNGKey(0), hp)
-    a = tdef.DeformationField(hp, torch.Generator().manual_seed(3))
-    b = tdef.DeformationField(hp, torch.Generator().manual_seed(3))
+    a = tdef.DeformationField(hp, torch.Generator().manual_seed(3), "cpu")
+    b = tdef.DeformationField(hp, torch.Generator().manual_seed(3), "cpu")
     for k, v in tree["grid"].items():
         pa = a.grid[k].detach()
         assert tuple(pa.shape) == v.shape
@@ -128,7 +128,7 @@ def test_apply_deformation_matches_jax(variant):
         tree["empty_voxel"] = jax.random.uniform(jax.random.PRNGKey(6),
                                                  (1, 64, 64, 64))
     field = deformation_from_numpy(jax.tree_util.tree_map(np.asarray, tree),
-                                   hp)
+                                   hp, device="cpu")
     rng = np.random.default_rng(7)
     n = 200
     xyz = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
@@ -159,7 +159,7 @@ def test_deformation_from_numpy_rejects_mismatch():
     other = ModelHiddenParams(**dict(TINY, grid_compute_bf16=False,
                                      static_mlp=True))
     with pytest.raises(ValueError, match="heads"):
-        deformation_from_numpy(tree, other)
+        deformation_from_numpy(tree, other, device="cpu")
     wide = dataclasses.replace(hp, net_width=32)
     with pytest.raises(ValueError, match="shape"):
-        deformation_from_numpy(tree, wide)
+        deformation_from_numpy(tree, wide, device="cpu")

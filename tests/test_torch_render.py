@@ -56,9 +56,11 @@ def _scene(seed=0):
     jpool.alive = jpool.alive & jnp.asarray(rng.random(CAP) > 0.05)
     hp = ModelHiddenParams(**HP)
     deform = init_deformation(jax.random.PRNGKey(seed), hp)
-    tpool = pool_from_numpy(vars(jax.tree_util.tree_map(np.asarray, jpool)))
+    tpool = pool_from_numpy(vars(jax.tree_util.tree_map(np.asarray, jpool)),
+                            device="cpu")
     tdeform = deformation_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                            deform), hp)
+                                                            deform), hp,
+                                     device="cpu")
     return jpool, deform, hp, tpool, tdeform
 
 
@@ -68,12 +70,12 @@ def _cameras(yaw_deg, time):
                   [-np.sin(yaw), 0, np.cos(yaw)]])      # c2w rotation
     T = np.array([0.2, -0.1, 0.3])
     return (j_make_camera(R, T, 1.0, 0.8, W, H, time=time),
-            t_make_camera(R, T, 1.0, 0.8, W, H, time=time))
+            t_make_camera(R, T, 1.0, 0.8, W, H, time=time, device="cpu"))
 
 
 def _close(got, want, atol=5e-4, rtol=1e-4, msg=""):
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol,
-                               rtol=rtol, err_msg=msg)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=atol, rtol=rtol, err_msg=msg)
 
 
 @pytest.fixture(scope="module")
@@ -95,7 +97,7 @@ def test_create_from_pcd_matches_jax():
     pts = rng.uniform(-5, 5, (500, 3)).astype(np.float32)
     cols = rng.random((500, 3)).astype(np.float32)
     jp = j_create_from_pcd(pts, cols, 512)
-    tp = t_create_from_pcd(pts, cols, 512)
+    tp = t_create_from_pcd(pts, cols, 512, device="cpu")
     for k in POOL_FIELDS:
         np.testing.assert_array_equal(getattr(tp, k).numpy(),
                                       np.asarray(getattr(jp, k)), err_msg=k)
