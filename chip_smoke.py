@@ -61,7 +61,7 @@ BWD_ATOL_SCALE, BWD_RTOL = 1e-5, 1e-4
 # lands on a rounding boundary moves by one bf16 step (0.4%) in one of
 # the two
 STEP_LOSS_RTOL, STEP_ATOL_SCALE, STEP_RTOL = 1e-4, 1e-3, 1e-2
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, float32
+# H100 SXM datasheet peaks: HBM bytes/s, float32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
