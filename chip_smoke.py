@@ -12,9 +12,13 @@ last line):
      ``nvcc`` each, in parallel), with ptxas registers and spills;
   3. each kernel vs its plain PyTorch version on the sorted pair stream of
      one full-width view and of a high-opacity variant (early exit), with
-     the tolerances of ``tests/test_tile_kernels.py``, and both times.  The
-     backward's cotangent is the gradient of the train step's loss with
-     respect to the compositor output;
+     the tolerances of ``tests/test_tile_kernels.py``, and both times
+     beside the launch geometry (pixels per thread, threads, batch, shared
+     bytes), the work counted on the stream, among it the warp-pairs with
+     a contributor (the backward's reductions), and each kernel's bound
+     for that work.  The backward's
+     cotangent is the gradient of the train step's loss with respect to
+     the compositor output;
   4. the render path: the headline scene of ``bench.py`` (200,000
      LiDAR-like Gaussians in a 204,800 pool, SH degree 3, default
      deformation field) rendered at 640x960 through ``render()`` for 3 rig
@@ -25,8 +29,11 @@ last line):
      2 coarse and 5 fine ``train_step``s against bench.py's random RGB and
      LiDAR-depth targets, launch counts checked; per-step times, a
      forward / backward / optimizer split and peak device memory;
-  6. a small scene on the GPU and on the CPU (plain compositors): one
-     render and one fine train step from the same state, which must agree.
+  6. a small scene on the GPU and on the CPU (plain compositors): renders
+     and one fine train step from the same state, which must agree; the
+     renders again with the field phase 5 trained, where a pixel may
+     differ only through a pair on a skip or exit threshold, which is
+     shown.
 
 Then one JSON line with both kernels, the card line, and last
 ``{"ok": true, "device": {...}}``.  The port imports no jax; neither
@@ -39,9 +46,11 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -61,20 +70,40 @@ BWD_ATOL_SCALE, BWD_RTOL = 1e-5, 1e-4
 # lands on a rounding boundary moves by one bf16 step (0.4%) in one of
 # the two
 STEP_LOSS_RTOL, STEP_ATOL_SCALE, STEP_RTOL = 1e-4, 1e-3, 1e-2
-# H100 SXM datasheet peaks: HBM bytes/s, float32
-# operations/s outside the tensor cores
+# H100 SXM datasheet peaks: HBM bytes/s; float32 outside the tensor
+# cores 67 TFLOP/s, which counts an FMA as two operations, so the card
+# issues 33.5 T float32 instructions a second, an FMA or a lone add,
+# multiply or min alike
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# float operations per pixel-pair, counted from the kernels' loop bodies
-# (csrc/composite_fwd.cu, composite_bwd.cu; exp counted as one):
-#   every evaluated pixel-pair: dx, dy 2 + conic_power 9 + exp 1 +
-#     alpha (mul, min) 2 = 14;
-#   forward, contributing: test_T 2 + w 1 + rgb/depth FMAs 8 + sum_w 1 +
-#     n_contrib 1 = 13;
-#   backward, contributing: test_T 2 + w 1 + e 8 + prefix 2 + d_alpha 5 +
-#     d_power 2 + x, y 8 + conic 9 + opacity 1 + rgb/depth 4 + the
-#     reduction's 10 adds = 52.
-ALPHA_OPS, FWD_BLEND_OPS, BWD_BLEND_OPS = 14, 13, 52
+F32_INSTR_PER_S = 67e12 / 2
+# float32 instructions the compositor's function needs, in the factored
+# form of csrc/composite_bwd.cu (terms of dx alone once per column, the
+# conic once per pair); exp and division counted as one each (each takes
+# several), compares and selects not counted, so this is a lower bound:
+#   per (column, pair) that a pixel of the column evaluates: dx 1 +
+#     conic_dx 3 = 4;
+#   per evaluated pixel-pair: dy 1 + conic_power 6 + exp 1 + alpha (mul,
+#     min) 2 = 10, no FMA among them (the _rn operations never contract);
+#   forward, per contributing pixel-pair: test_T 2 + w 1 + rgb/depth 4 +
+#     sum_w 1 + n_contrib 1 = 9, of which the 4 rgb/depth are FMAs;
+#   backward, per contributing pixel-pair: test_T 2 + w 1 + e 4 + prefix
+#     1 + d_alpha 3 + d_power 2 + the sums of d_power (1, dy, dy^2) 4 +
+#     opacity 1 + rgb/depth 4 = 22, of which 12 are FMAs (e 4, prefix 1,
+#     d_alpha 1, the dy^2 sum 1, opacity 1, rgb/depth 4); per (column,
+#     pair) that a pixel of the column contributes to: the sums' dx
+#     products 3.  The last pass, 7 per pair, is left out.
+COLUMN_OPS, ALPHA_OPS, FWD_BLEND_OPS = 4, 10, 9
+BWD_BLEND_OPS, BWD_COLUMN_OPS = 22, 3
+# a GPU-vs-CPU pixel difference is put down to a pair on a threshold when
+# the pair's power, alpha or transmittance lies within this share of the
+# threshold on both devices (power: within this of 0)
+FLIP_MARGIN = 1e-3
+# the trained-field renders of phase 6: pixels beyond tolerance allowed
+# per view, each shown to come from a threshold flip
+MAX_FLIPPED_PIXELS = 32
+# shuffles per warp-pair of the backward's reduction
+# (csrc/composite_bwd.cu::warp_reduce_scatter)
+REDUCE_SHUFFLES = 12
 
 
 class SmokeFailure(Exception):
@@ -145,21 +174,21 @@ def cuda_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def frame_stages(torch, cam, pool, deform, pipe, bg, aabb, cfg):
-    """render()'s fine path split into its stages with CUDA events between
-    them.  Returns (ms per stage, [T,8,P] compositor output, stream,
-    tile_starts)."""
+def fine_stream(torch, cam, pool, deform, bg, aabb, cfg,
+                mark=lambda: None):
+    """render()'s fine path up to the compositor, on the device of
+    ``pool``: (sorted pair stream, tile_starts, gx, gy).  ``mark()`` is
+    called before the deformation and after it, the projection and the
+    sort."""
     from s3gaussian_tpu_torch.ops import rasterizer as rz
     from s3gaussian_tpu_torch.ops.project import sh_to_color
-    from s3gaussian_tpu_torch.ops.tile_kernels import composite_fwd
     from s3gaussian_tpu_torch.render.renderer import make_settings
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     with torch.no_grad():
-        ev[0].record()
+        mark()
         shs = pool.get_features()
         d = deform(pool.xyz, pool.scaling, pool.rotation, pool.opacity, shs,
                    cam.time.reshape(()), aabb)
-        ev[1].record()
+        mark()
         settings = make_settings(cam, bg, 3)
         colors = sh_to_color(d.shs, pool.xyz, cam.campos, 3)
         rot = d.rotations / torch.linalg.norm(d.rotations, dim=-1,
@@ -168,11 +197,25 @@ def frame_stages(torch, cam, pool, deform, pipe, bg, aabb, cfg):
             settings, d.xyz, torch.sigmoid(d.opacity)[:, 0],
             scales=torch.exp(d.scales), rotations=rot, colors_precomp=colors,
             alive=pool.alive, cfg=cfg)
-        ev[2].record()
+        mark()
         gx, gy = rz.grid_dims(settings, cfg)
         stream, tile_starts, _, _ = rz.sort_stream(
             feat_pool, pk, gx * gy, cfg.rect_cap, cfg.pair_budget)
-        ev[3].record()
+        mark()
+    return stream, tile_starts, gx, gy
+
+
+def frame_stages(torch, cam, pool, deform, pipe, bg, aabb, cfg):
+    """render()'s fine path split into its stages with CUDA events between
+    them.  Returns (ms per stage, [T,8,P] compositor output, stream,
+    tile_starts)."""
+    from s3gaussian_tpu_torch.ops.tile_kernels import composite_fwd
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    marks = iter(ev)
+    stream, tile_starts, gx, gy = fine_stream(
+        torch, cam, pool, deform, bg, aabb, cfg,
+        mark=lambda: next(marks).record())
+    with torch.no_grad():
         out = composite_fwd(stream, tile_starts, gx, gy, cfg.tile_x,
                             cfg.tile_y)
         ev[4].record()
@@ -231,18 +274,25 @@ def step_loss_cotangent(torch, out, gt, gt_depth, opt, gx, gy, cfg):
     return dout.contiguous()
 
 
-def work_counts(torch, stream, tile_starts, gx, gy, tx, ty, chunk=128):
+def work_counts(torch, stream, tile_starts, gx, gy, tx, ty, groups,
+                chunk=128):
     """What a compositor must do on this stream, counted as the plain
     version composites it: the pixel-pairs evaluated (a pixel evaluates
-    its tile's pairs until the one that saturates it, inclusive) and the
+    its tile's pairs until the one that saturates it, inclusive), the
     pairs that must be read (per tile, the most any of its pixels
-    evaluates).  The forward output's row 5 counts the contributing ones."""
+    evaluates) and, for each pixel-to-group map in ``groups`` ([P] group
+    of each pixel: a warp, a column), the (group, pair)s in which some
+    pixel evaluates and in which some pixel contributes.  The forward
+    output's row 5 counts the contributing pixel-pairs."""
     from s3gaussian_tpu_torch.ops import composite as comp
     dev = stream.device
     starts = tile_starts[:-1].long()
     counts = tile_starts[1:].long() - starts
     px, py = comp.tile_pixel_coords(gx, gy, tx, ty, dev)
     evaluated = torch.zeros(gx * gy, tx * ty, device=dev)
+    onehot = {k: torch.nn.functional.one_hot(w).float()
+              for k, w in groups.items()}
+    group_pairs = {k: {"evaluating": 0, "contributing": 0} for k in groups}
     t = torch.ones(gx * gy, 1, tx * ty, device=dev)
     lane = torch.arange(chunk, device=dev)
     with torch.no_grad():
@@ -261,15 +311,117 @@ def work_counts(torch, stream, tile_starts, gx, gy, tx, ty, chunk=128):
                              | ~valid[..., None], 0.0, alpha)
             cum_incl = t * torch.cumprod(1.0 - am, dim=1)
             before = cum_incl / (1.0 - am)
-            evaluated += ((before >= comp.T_EPS) & valid[..., None]).sum(1)
+            evals = (before >= comp.T_EPS) & valid[..., None]
+            evaluated += evals.sum(1)
+            contrib = (cum_incl >= comp.T_EPS) & (am > 0)
+            for k, oh in onehot.items():
+                for what, mask in (("evaluating", evals),
+                                   ("contributing", contrib)):
+                    group_pairs[k][what] += int(((mask.float() @ oh) > 0)
+                                                .sum())
             t = cum_incl[:, -1:]
-    return int(evaluated.sum()), int(evaluated.amax(1).sum())
+    return int(evaluated.sum()), int(evaluated.amax(1).sum()), group_pairs
 
 
-def bound(n_bytes, n_ops):
-    """Least time on the card (ms) and what sets it."""
+def pixel_groups(torch, tk, geometry, tx, ty, dev):
+    """[P] group of each pixel of a tile: its warp under ``geometry``
+    ("launch") and with one thread per pixel ("one_per_thread"), and its
+    column ("column")."""
+    slots = tk.pixel_slots(geometry, tx, ty)                # [threads, ppt]
+    thread = torch.arange(slots.shape[0])[:, None].expand_as(slots)
+    launch = torch.empty(tx * ty, dtype=torch.int64)
+    owned = slots >= 0
+    launch[slots[owned]] = thread[owned] // 32
+    pixel = torch.arange(tx * ty, device=dev)
+    return {"launch": launch.to(dev), "one_per_thread": pixel // 32,
+            "column": pixel % tx}
+
+
+def geometry_str(g, smem_bytes):
+    return (f"{g.pixels_per_thread} pixels/thread, {g.threads} threads, "
+            f"batch {g.batch}, {smem_bytes} B shared")
+
+
+def ptxas_summary(log):
+    """``nvcc -Xptxas -v`` output -> "kernel: R registers, S spill
+    bytes" for each kernel."""
+    lines, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"(composite_[a-z]+_kernel)", ln)
+        if "entry function" in ln and m:
+            name = m[1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m[1]}+{m[2]} spill bytes"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            lines.append(f"{name}: {m[1]} registers, {spill}")
+            name = None
+    return lines
+
+
+def pixel_trace(torch, stream, tile_starts, tile, px, py):
+    """The plain compositor's arithmetic for pixel (px, py) of ``tile``, on
+    the CPU in float32: per pair of the tile its x, y and depth, power,
+    alpha, the transmittance after it and whether it contributes."""
+    from s3gaussian_tpu_torch.ops import composite as comp
+    f = stream[:, int(tile_starts[tile]):int(tile_starts[tile + 1])].cpu()
+    dx, dy = f[comp.FX] - px, f[comp.FY] - py
+    power = (-0.5 * (f[comp.FCA] * dx * dx + f[comp.FCC] * dy * dy)
+             - f[comp.FCB] * dx * dy)
+    alpha = torch.clamp(f[comp.FOP] * torch.exp(power), max=comp.ALPHA_MAX)
+    am = torch.where((power > 0) | (alpha < comp.ALPHA_MIN), 0.0, alpha)
+    t_after = torch.cumprod(1.0 - am, 0)
+    return {"xyd": torch.stack([f[comp.FX], f[comp.FY], f[comp.FD]], 1),
+            "power": power, "alpha": alpha, "t_after": t_after,
+            "contrib": (t_after >= comp.T_EPS) & (am > 0)}
+
+
+def threshold_flips(torch, tg, tc):
+    """The pairs whose decision differs between two traces of one pixel
+    (pixel_trace on the GPU's and on the CPU's stream), front to back,
+    pairs matched by x, y and depth: [(kind, depth, values)], kind the
+    threshold that the pair's values on the two devices straddle and both
+    lie within FLIP_MARGIN of ("power" > 0, "alpha" < 1/255, "T" < 1e-4),
+    else "unexplained".  A flip changes the transmittance behind it, so
+    only the first flip has to be on a threshold."""
+    from s3gaussian_tpu_torch.ops import composite as comp
+    a, b = tg["xyd"][:, None].double(), tc["xyd"][None].double()
+    close = ((a - b).abs() <= 1e-4 * (1 + b.abs())).all(-1)     # [ng, nc]
+    j_of = torch.where(close.any(1), close.float().argmax(1), -1)
+    matched = torch.zeros(b.shape[1], dtype=torch.bool)
+    matched[j_of[j_of >= 0]] = True
+    flips = [("unexplained", float(tc["xyd"][j, 2]), "only in the CPU's tile")
+             for j in torch.nonzero(tc["contrib"] & ~matched)[:, 0].tolist()]
+    for i in range(a.shape[0]):
+        j = int(j_of[i])
+        depth = float(tg["xyd"][i, 2])
+        if j < 0:
+            if bool(tg["contrib"][i]):
+                flips.append(("unexplained", depth, "only in the GPU's tile"))
+            continue
+        if bool(tg["contrib"][i]) == bool(tc["contrib"][j]):
+            continue
+        vals = {k: (float(tg[k][i]), float(tc[k][j]))
+                for k in ("power", "alpha", "t_after")}
+        kind = "unexplained"
+        for name, key, thr in (("power", "power", 0.0),
+                               ("alpha", "alpha", comp.ALPHA_MIN),
+                               ("T", "t_after", comp.T_EPS)):
+            g, c = vals[key]
+            near = max(abs(g - thr), abs(c - thr)) <= FLIP_MARGIN * (thr or 1)
+            if (g < thr) != (c < thr) and near:
+                kind = name
+                break
+        flips.append((kind, depth, vals))
+    return sorted(flips, key=lambda f: f[1])
+
+
+def bound(n_bytes, n_instr):
+    """Least time on the card (ms) for n_bytes of HBM traffic and n_instr
+    float32 instructions, and what sets it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_instr / F32_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -303,12 +455,51 @@ def snapshot(torch, state):
             for k, v in d.items()}
 
 
-def main() -> int:
-    import torch
-
+def headline(torch, dev):
+    """bench.py's headline workload on ``dev``: the scene, its random RGB
+    and LiDAR-depth targets, the configs and the 6 rig cameras."""
     from s3gaussian_tpu_torch.config import (ModelHiddenParams,
                                              OptimizationParams,
                                              PipelineParams, RasterConfig)
+    from s3gaussian_tpu_torch.models.deformation import DeformationField
+    pool, rng = make_scene(torch, dev, N_GAUSSIANS, CAPACITY)
+    hp = ModelHiddenParams()
+    return types.SimpleNamespace(
+        pool=pool,
+        gt=rng.random((H, W, 3)).astype(np.float32),       # bench.py:102-103
+        gt_depth=rng.uniform(1, 70, (H, W)).astype(np.float32),
+        hp=hp, opt=OptimizationParams(),
+        deform=DeformationField(hp, torch.Generator().manual_seed(0), dev),
+        aabb=torch.tensor([[80.0, 80.0, 80.0], [-80.0, -80.0, -10.0]],
+                          device=dev),
+        pipe=PipelineParams(),
+        cfg=RasterConfig(tile_x=16, tile_y=16, max_visible=CAPACITY,
+                         rect_w=4, rect_h=4, pair_budget=1 << 22, chunk=128,
+                         big_budget=0, tight_rect=True),
+        bg=torch.zeros(3, device=dev),
+        cams=[rig_camera(torch, dev, yaw, t, H, W)
+              for t in TIMES for yaw in YAWS_DEG])
+
+
+def kernel_streams(torch, su):
+    """The sorted pair streams the kernels are checked and timed on: the
+    front camera at t = 0.4 ("view") and the same with every opacity drawn
+    from [0.9, 0.99] ("high_opacity", early exits).  name -> (stream,
+    tile_starts)."""
+    dev = su.bg.device
+    hi_pool = copy.copy(su.pool)
+    op = np.random.default_rng(1).uniform(0.9, 0.99, CAPACITY)
+    hi_pool.opacity = torch.tensor(np.log(op / (1 - op)), dtype=torch.float32,
+                                   device=dev)[:, None]
+    return {name: frame_stages(torch, su.cams[1], pool, su.deform, su.pipe,
+                               su.bg, su.aabb, su.cfg)[2:]
+            for name, pool in (("view", su.pool), ("high_opacity", hi_pool))}
+
+
+def main() -> int:
+    import torch
+
+    from s3gaussian_tpu_torch.config import RasterConfig
     from s3gaussian_tpu_torch.device import configure_device
     from s3gaussian_tpu_torch.eval.video import render_pixels
     from s3gaussian_tpu_torch.models.deformation import DeformationField
@@ -338,29 +529,18 @@ def main() -> int:
     logs = tk.build()
     build_s = time.time() - t0
     for name, log in logs.items():
-        ptxas = " | ".join(ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln)
-        print(f"build {name}: -> {tk.library_path(name).name} [{ptxas}]")
+        print(f"build {name}: -> {tk.library_path(name).name} "
+              f"[{' | '.join(ptxas_summary(log))}]")
     print(f"build: {build_s:.2f} s for {len(logs)} kernels in parallel",
           flush=True)
 
     # the headline workload of bench.py
     t0 = time.time()
-    pool, rng = make_scene(torch, dev, N_GAUSSIANS, CAPACITY)
-    gt = rng.random((H, W, 3)).astype(np.float32)          # bench.py:102-103
-    gt_depth = rng.uniform(1, 70, (H, W)).astype(np.float32)
-    hp = ModelHiddenParams()
-    opt = OptimizationParams()
-    deform = DeformationField(hp, torch.Generator().manual_seed(0), dev)
-    aabb = torch.tensor([[80.0, 80.0, 80.0], [-80.0, -80.0, -10.0]],
-                        device=dev)
-    pipe = PipelineParams()
-    cfg = RasterConfig(tile_x=16, tile_y=16, max_visible=CAPACITY, rect_w=4,
-                       rect_h=4, pair_budget=1 << 22, chunk=128,
-                       big_budget=0, tight_rect=True)
-    bg = torch.zeros(3, device=dev)
-    cams = [rig_camera(torch, dev, yaw, t, H, W)
-            for t in TIMES for yaw in YAWS_DEG]
+    su = headline(torch, dev)
+    pool, deform, aabb, pipe, cfg, bg, cams = (su.pool, su.deform, su.aabb,
+                                               su.pipe, su.cfg, su.bg,
+                                               su.cams)
+    gt, gt_depth, hp, opt = su.gt, su.gt_depth, su.hp, su.opt
     torch.cuda.synchronize()
     print(f"scene: {N_GAUSSIANS} gaussians in a {CAPACITY} pool, "
           f"{len(cams)} cameras {H}x{W}, set-up {time.time() - t0:.2f} s",
@@ -369,20 +549,13 @@ def main() -> int:
     # 3. kernels vs plain on the card, full-width view + high opacity
     gx, gy = -(-W // cfg.tile_x), -(-H // cfg.tile_y)
     n_tiles, p = gx * gy, cfg.tile_x * cfg.tile_y
-    _, _, stream, tile_starts = frame_stages(torch, cams[1], pool, deform,
-                                             pipe, bg, aabb, cfg)
-    hi_pool = copy.copy(pool)
-    op = np.random.default_rng(1).uniform(0.9, 0.99, CAPACITY)
-    hi_pool.opacity = torch.tensor(np.log(op / (1 - op)), dtype=torch.float32,
-                                   device=dev)[:, None]
-    _, _, hi_stream, hi_starts = frame_stages(torch, cams[1], hi_pool, deform,
-                                              pipe, bg, aabb, cfg)
+    streams = kernel_streams(torch, su)
     gt_t = torch.tensor(gt, device=dev)
     gt_depth_t = torch.tensor(gt_depth, device=dev)
+    geo = tk.launch_geometry(cfg.tile_x, cfg.tile_y)
     fwd = {"max_err": 0.0}
     bwd = {"max_err": 0.0}
-    for name, (s, ts) in {"view": (stream, tile_starts),
-                          "high_opacity": (hi_stream, hi_starts)}.items():
+    for name, (s, ts) in streams.items():
         n_pairs = int(ts[-1])
         got = tk.composite_fwd(s, ts, gx, gy, cfg.tile_x, cfg.tile_y)
         want = composite_tiles_torch(s, ts, gx, gy, cfg.tile_x, cfg.tile_y)
@@ -395,7 +568,8 @@ def main() -> int:
             s, ts, gx, gy, cfg.tile_x, cfg.tile_y), reps=3, warmup=1)
         print(f"composite_fwd vs plain [{name}]: M={s.shape[1]} "
               f"n_pairs={n_pairs} tiles={n_tiles} max_abs_err={err:.3e} "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms ({card})",
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"[{geometry_str(geo, geo.fwd_smem_bytes)}] ({card})",
               flush=True)
 
         dout = step_loss_cotangent(torch, got, gt_t, gt_depth_t, opt, gx, gy,
@@ -418,29 +592,44 @@ def main() -> int:
             warmup=1)
         print(f"composite_bwd vs plain [{name}]: max_abs_err={berr:.3e} "
               f"(scale {float(gp[:, :n_pairs].abs().max()):.3e}) kernel "
-              f"{bms:.4f} ms plain {bplain_ms:.4f} ms ({card})", flush=True)
+              f"{bms:.4f} ms plain {bplain_ms:.4f} ms "
+              f"[{geometry_str(geo, geo.bwd_smem_bytes)}] ({card})",
+              flush=True)
 
-        evaluated, needed = work_counts(torch, s, ts, gx, gy, cfg.tile_x,
-                                        cfg.tile_y)
+        evaluated, needed, group_pairs = work_counts(
+            torch, s, ts, gx, gy, cfg.tile_x, cfg.tile_y,
+            pixel_groups(torch, tk, geo, cfg.tile_x, cfg.tile_y, dev))
         contributing = int(got[:, 5].sum())
+        wl, w1, col = (group_pairs[k] for k in ("launch", "one_per_thread",
+                                                "column"))
         print(f"work [{name}]: {evaluated} pixel-pairs evaluated, "
               f"{contributing} contributing, {needed} pairs read of "
-              f"{n_pairs}", flush=True)
+              f"{n_pairs}; warp-pairs with a lane evaluating (about the "
+              f"backward's reductions, {REDUCE_SHUFFLES} shuffles each) / "
+              f"with a contributor: {wl['evaluating']} / "
+              f"{wl['contributing']} at {geo.pixels_per_thread} pixels "
+              f"per thread, {w1['evaluating']} / {w1['contributing']} at "
+              f"one; column-pairs {col['evaluating']} / "
+              f"{col['contributing']}", flush=True)
         if name == "view":
             io_stream = needed * 10 * 4 + (n_tiles + 1) * 4
-            fwd.update(ms=ms, plain_ms=plain_ms, bound=bound(
+            alpha_ops = col["evaluating"] * COLUMN_OPS + evaluated * ALPHA_OPS
+            fwd.update(ms=ms, plain_ms=plain_ms, work=(
                 io_stream + n_tiles * 8 * p * 4,
-                evaluated * ALPHA_OPS + contributing * FWD_BLEND_OPS))
-            bwd.update(ms=bms, plain_ms=bplain_ms, bound=bound(
+                alpha_ops + contributing * FWD_BLEND_OPS))
+            bwd.update(ms=bms, plain_ms=bplain_ms, work=(
                 io_stream + 2 * n_tiles * 5 * p * 4 + 16 * s.shape[1] * 4,
-                evaluated * ALPHA_OPS + contributing * BWD_BLEND_OPS))
+                alpha_ops + contributing * BWD_BLEND_OPS
+                + col["contributing"] * BWD_COLUMN_OPS))
         del gk, gp, again, dout
     for name, d in (("composite_fwd", fwd), ("composite_bwd", bwd)):
-        print(f"bound {name} [view]: {d['bound'][0]:.4f} ms, set by "
+        d["bound"] = bound(*d["work"])
+        print(f"bound {name} [view]: {d['work'][0]} bytes, {d['work'][1]} "
+              f"f32 instructions -> {d['bound'][0]:.4f} ms, set by "
               f"{d['bound'][1]} (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s "
-              f"f32); kernel {d['ms']:.4f} ms = "
+              f"f32 = 33.5 T f32 instructions/s); kernel {d['ms']:.4f} ms = "
               f"{d['bound'][0] / d['ms']:.3f} of the bound", flush=True)
-    del stream, tile_starts, hi_stream, hi_starts, hi_pool
+    del streams
 
     # 4. the render path through the user entry points, launches counted
     rasterize_calls = 0
@@ -571,13 +760,16 @@ def main() -> int:
           + f" ms ({card})", flush=True)
     del state
 
-    # 6. small scene: GPU vs CPU (plain compositors): render + train step
+    # 6. small scene: GPU vs CPU (plain compositors): render + train step,
+    # with the field made anew from its seed, then the renders with the
+    # field phase 5 trained in place
     small_cfg = RasterConfig(max_visible=4096, pair_budget=1 << 16)
     small_pool, srng = make_scene(torch, dev, 3000, 4096, seed=2)
     cpu_pool = copy.copy(small_pool)
     for f in ("xyz", "features_dc", "features_rest", "scaling", "rotation",
               "opacity", "alive"):
         setattr(cpu_pool, f, getattr(small_pool, f).cpu())
+    deform = DeformationField(hp, torch.Generator().manual_seed(0), dev)
     cpu_deform = copy.deepcopy(deform).cpu()
     worst = 0.0
     with torch.no_grad():
@@ -598,6 +790,66 @@ def main() -> int:
             check(int(g["raster_aux"]["n_pairs"]) > 0, "small scene: no pairs")
     print(f"reference: small scene (3000 gaussians, 96x160) render GPU vs CPU "
           f"plain path max abs err {worst:.3e}", flush=True)
+
+    # The trained field's last bits follow the order of every gradient sum
+    # of phase 5's 10 steps, and the two devices project its output with
+    # last bits of their own, so a pair can fall on either side of a skip
+    # or exit threshold on the two devices.  A pixel beyond tolerance must
+    # be shown to come from such a pair: its trace on both devices' sorted
+    # streams, whose first differing decision straddles a threshold.
+    trained_cpu = copy.deepcopy(su.deform).cpu()
+    flipped, worst_rest, views = [], 0.0, 0
+    for yaw in YAWS_DEG:
+        for t in (0.3, 0.5, 0.7):
+            cam_g = rig_camera(torch, dev, yaw, t, 96, 160)
+            cam_c = rig_camera(torch, "cpu", yaw, t, 96, 160)
+            with torch.no_grad():
+                g = render(cam_g, small_pool, su.deform, pipe, bg, aabb, 3,
+                           cfg=small_cfg)
+                c = render(cam_c, cpu_pool, trained_cpu, pipe, bg.cpu(),
+                           aabb.cpu(), 3, cfg=small_cfg)
+            views += 1
+            errs = [((g[k].cpu().double() - c[k].double()).abs(),
+                     c[k].double().abs()) for k in ("render", "depth")]
+            bad = torch.zeros(96, 160, dtype=torch.bool)
+            pixel_err = torch.zeros(96, 160, dtype=torch.float64)
+            for err, ref in errs:
+                over = err > RGBD_ATOL + RGBD_RTOL * ref
+                bad |= over.any(0) if over.dim() == 3 else over
+                pixel_err = torch.maximum(
+                    pixel_err, err.amax(0) if err.dim() == 3 else err)
+            worst_rest = max(worst_rest, float(pixel_err[~bad].max()))
+            ys, xs = torch.nonzero(bad, as_tuple=True)
+            check(len(ys) <= MAX_FLIPPED_PIXELS,
+                  f"trained field, yaw {yaw} t {t}: {len(ys)} pixels beyond "
+                  f"tolerance GPU vs CPU")
+            if len(ys) == 0:
+                continue
+            sg = fine_stream(torch, cam_g, small_pool, su.deform, bg, aabb,
+                             small_cfg)
+            sc = fine_stream(torch, cam_c, cpu_pool, trained_cpu, bg.cpu(),
+                             aabb.cpu(), small_cfg)
+            for y, x in zip(ys.tolist(), xs.tolist()):
+                tile = ((y // small_cfg.tile_y) * sg[2]
+                        + x // small_cfg.tile_x)
+                flips = threshold_flips(
+                    torch, pixel_trace(torch, sg[0], sg[1], tile, x, y),
+                    pixel_trace(torch, sc[0], sc[1], tile, x, y))
+                check(bool(flips) and flips[0][0] != "unexplained",
+                      f"trained field, yaw {yaw} t {t}, pixel ({x}, {y}): "
+                      f"GPU vs CPU differs by {float(pixel_err[y, x]):.3e} "
+                      f"with no pair on a threshold first: {flips[:3]}")
+                flipped.append((yaw, t, x, y, float(pixel_err[y, x]),
+                                flips[0]))
+    print(f"reference: trained field, small scene render GPU vs CPU over "
+          f"{views} views: {len(flipped)} pixels beyond tolerance, each "
+          f"behind a pair on a threshold; max abs err elsewhere "
+          f"{worst_rest:.3e}", flush=True)
+    for yaw, t, x, y, e, (kind, depth, vals) in flipped[:8]:
+        print(f"  flip: yaw {yaw} t {t} pixel ({x}, {y}) err {e:.3e}: pair "
+              f"at depth {depth:.4f} on the {kind} threshold, (GPU, CPU) "
+              + " ".join(f"{k} ({v[0]:.9g}, {v[1]:.9g})"
+                         for k, v in vals.items()), flush=True)
 
     s_cpu = tr.init_state(cpu_pool, cpu_deform, aabb.cpu())
     mrng = np.random.default_rng(3)        # mid-training moments

@@ -10,6 +10,9 @@ under ``build/s3gaussian_tpu_torch/`` beside the package, and loaded with
 CUDA tensor launches the kernel or raises; only a CPU tensor takes the
 plain version (``composite.composite_tiles_torch`` /
 ``composite.composite_tiles_bwd_torch``).
+
+``launch_geometry`` sets a tile's launch (threads, dynamic shared memory)
+where the CPU tests reach it; the C entry points take it as arguments.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -41,6 +44,58 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches = 0
 bwd_launches = 0
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# The launch geometry both kernels are compiled for
+# (csrc/composite_common.cuh): one block per tile, each thread owning
+# PIXELS_PER_THREAD vertically adjacent pixels of one column (pixel_slot),
+# pair batches of BATCH staged through a two-deep ring in shared memory.
+PIXELS_PER_THREAD = 2
+BATCH = 128
+MAX_PIXELS = 1024
+MAX_THREADS = 512                      # the kernels' __launch_bounds__
+_STAGE_ROWS = 10          # data rows of the stream staged per pair
+_PARTIAL_STRIDE = 11      # floats per (warp, pair) partial of the backward
+
+
+class LaunchGeometry(NamedTuple):
+    pixels_per_thread: int
+    threads: int
+    batch: int
+    fwd_smem_bytes: int
+    bwd_smem_bytes: int
+
+
+def launch_geometry(tile_x: int, tile_y: int) -> LaunchGeometry:
+    """Both kernels' launch for a tile_x × tile_y tile: threads in whole
+    warps to cover ``tile_x · ceil(tile_y / PIXELS_PER_THREAD)`` pixel
+    columns, and the dynamic shared memory of two ring stages of BATCH
+    pairs (plus, in the backward, the per-warp partials: at most 100,352
+    bytes, which the C entry points opt in to above 48 KB).  Raises
+    ValueError on a tile the kernels cannot serve."""
+    if tile_x < 1 or tile_y < 1 or tile_x * tile_y > MAX_PIXELS:
+        raise ValueError(f"tile of {tile_x}x{tile_y} pixels: the kernels "
+                         f"serve 1 to {MAX_PIXELS} pixels")
+    columns = tile_x * -(-tile_y // PIXELS_PER_THREAD)
+    threads = -(-columns // 32) * 32
+    if threads > MAX_THREADS:
+        raise ValueError(f"tile of {tile_x}x{tile_y} pixels needs {threads} "
+                         f"threads at {PIXELS_PER_THREAD} pixels each, more "
+                         f"than {MAX_THREADS}")
+    fwd_smem = 4 * 2 * _STAGE_ROWS * BATCH
+    bwd_smem = fwd_smem + 4 * (threads // 32) * _PARTIAL_STRIDE * BATCH
+    return LaunchGeometry(PIXELS_PER_THREAD, threads, BATCH, fwd_smem,
+                          bwd_smem)
+
+
+def pixel_slots(geometry: LaunchGeometry, tile_x: int,
+                tile_y: int) -> torch.Tensor:
+    """[threads, pixels_per_thread] int64: the pixel (row-major in the
+    tile) that each (thread, slot) of a launch owns, -1 where none; the
+    map of ``csrc/composite_common.cuh::pixel_slot``."""
+    ppt = geometry.pixels_per_thread
+    t = torch.arange(geometry.threads)[:, None]
+    row = (t // tile_x) * ppt + torch.arange(ppt)[None, :]
+    return torch.where(row < tile_y, row * tile_x + t % tile_x, -1)
 
 
 def _nvcc() -> str:
@@ -99,11 +154,12 @@ def _load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         fn = getattr(lib, name)
+        # ..., grid_x, grid_y, tile_x, tile_y, threads, smem_bytes
+        dims = [i32] * 6
         if name == "composite_fwd":
-            fn.argtypes = [ptr, i64, ptr, ptr, i32, i32, i32, i32, ptr]
+            fn.argtypes = [ptr, i64, ptr, ptr, *dims, ptr]
         else:
-            fn.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                           ptr]
+            fn.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, *dims, ptr]
         fn.restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
@@ -127,7 +183,7 @@ def _check_stream(name: str, pair_feat: torch.Tensor,
 
 
 def _check_launch(name: str, tensors, tile_starts: torch.Tensor,
-                  p: int) -> None:
+                  tile_x: int, tile_y: int) -> LaunchGeometry:
     if (any(t.dtype != torch.float32 for t in tensors)
             or tile_starts.dtype != torch.int32):
         raise TypeError(f"{name} takes float32 tensors and int32 "
@@ -136,9 +192,7 @@ def _check_launch(name: str, tensors, tile_starts: torch.Tensor,
                         f"{tile_starts.dtype}")
     if not all(t.is_contiguous() for t in (*tensors, tile_starts)):
         raise ValueError(f"{name} takes contiguous tensors")
-    if not 0 < p <= 1024:
-        raise ValueError(f"tile of {p} pixels: the kernel runs one thread "
-                         f"per pixel, at most 1024")
+    return launch_geometry(tile_x, tile_y)
 
 
 def composite_fwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
@@ -151,16 +205,17 @@ def composite_fwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
     if pair_feat.device.type == "cpu":
         return composite_tiles_torch(pair_feat, tile_starts, grid_x, grid_y,
                                      tile_x, tile_y)
-    p = tile_x * tile_y
-    _check_launch("composite_fwd", (pair_feat,), tile_starts, p)
-    out = torch.empty(grid_x * grid_y, N_OUT_ROWS, p, dtype=torch.float32,
-                      device=pair_feat.device)
+    geo = _check_launch("composite_fwd", (pair_feat,), tile_starts, tile_x,
+                        tile_y)
+    out = torch.empty(grid_x * grid_y, N_OUT_ROWS, tile_x * tile_y,
+                      dtype=torch.float32, device=pair_feat.device)
     lib = _load("composite_fwd")
     with torch.cuda.device(pair_feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.composite_fwd(pair_feat.data_ptr(), pair_feat.shape[1],
                                 tile_starts.data_ptr(), out.data_ptr(),
-                                grid_x, grid_y, tile_x, tile_y, stream)
+                                grid_x, grid_y, tile_x, tile_y, geo.threads,
+                                geo.fwd_smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -190,7 +245,8 @@ def composite_bwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
     if pair_feat.device.type == "cpu":
         return composite_tiles_bwd_torch(pair_feat, tile_starts, out, dout,
                                          grid_x, grid_y, tile_x, tile_y)
-    _check_launch("composite_bwd", (pair_feat, out, dout), tile_starts, p)
+    geo = _check_launch("composite_bwd", (pair_feat, out, dout), tile_starts,
+                        tile_x, tile_y)
     grads = torch.zeros(PAIR_FEAT_DIM, pair_feat.shape[1],
                         dtype=torch.float32, device=pair_feat.device)
     lib = _load("composite_bwd")
@@ -199,7 +255,8 @@ def composite_bwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
         err = lib.composite_bwd(pair_feat.data_ptr(), pair_feat.shape[1],
                                 tile_starts.data_ptr(), out.data_ptr(),
                                 dout.data_ptr(), grads.data_ptr(), grid_x,
-                                grid_y, tile_x, tile_y, stream)
+                                grid_y, tile_x, tile_y, geo.threads,
+                                geo.bwd_smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
                            f"{err}")

@@ -9,7 +9,8 @@ jax it runs on its own:
 
 Tolerances are those of ``tests/test_tile_kernels.py``: rgb/depth atol
 5e-4 rtol 1e-4, final_T atol 2e-4, n_contrib within 1; per-pair
-gradients atol 1e-5·max|plain|, rtol 1e-4.
+gradients atol 1e-5·max|plain|, rtol 1e-4.  The backward must also be
+bit-identical on repeat (no atomics).
 """
 
 import math
@@ -148,3 +149,100 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         tk.composite_bwd(stream, starts, out, out.cpu(), gx, gy, 16, 16)
     assert tk.bwd_launches == before
+
+
+def synthetic_stream(dev, seed, counts, grid, tile_x, tile_y, opacity_range,
+                     sigma_range=(1.0, 6.0), pad=7):
+    """A [16, M] pair stream with counts[t] pairs for tile t (row-major
+    tiles of a grid (gx, gy)), each a Gaussian centred on or near its tile,
+    and `pad` zero slots past the last range.  The compositors take the
+    pairs in the order given, so no depth sort is needed."""
+    rng = np.random.default_rng(seed)
+    gx, gy = grid
+    assert len(counts) == gx * gy
+    n = int(sum(counts))
+    tiles = np.repeat(np.arange(gx * gy), counts)
+    cx = (tiles % gx) * tile_x + rng.uniform(-4, tile_x + 4, n)
+    cy = (tiles // gx) * tile_y + rng.uniform(-4, tile_y + 4, n)
+    sx, sy = (rng.uniform(*sigma_range, n) for _ in range(2))
+    th = rng.uniform(0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    # conic = inverse of R diag(sx^2, sy^2) R^T
+    ia, ib = 1 / sx ** 2, 1 / sy ** 2
+    conic = np.stack([c * c * ia + s * s * ib, c * s * (ia - ib),
+                      s * s * ia + c * c * ib], 0)
+    feat = np.zeros((16, n + pad), np.float32)
+    feat[0, :n], feat[1, :n] = cx, cy
+    feat[2:5, :n] = conic
+    feat[5, :n] = rng.uniform(*opacity_range, n)
+    feat[6:9, :n] = rng.random((3, n))
+    feat[9, :n] = rng.uniform(1, 10, n)
+    feat[10, :n] = 1.0
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return (torch.tensor(feat, device=dev), torch.tensor(starts, device=dev),
+            gx, gy)
+
+
+def check_both_kernels(dev, stream, starts, gx, gy, tile_x, tile_y, seed):
+    """Both kernels vs their plain versions; the backward bit-identical on
+    repeat and exactly 0 where nothing is written."""
+    got = tk.composite_fwd(stream, starts, gx, gy, tile_x, tile_y)
+    want = composite_tiles_torch(stream, starts, gx, gy, tile_x, tile_y)
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(g[:, 0:4], w[:, 0:4], atol=5e-4, rtol=1e-4)
+    np.testing.assert_allclose(g[:, 4], w[:, 4], atol=2e-4)
+    np.testing.assert_allclose(g[:, 5], w[:, 5], atol=1.0)
+    np.testing.assert_array_equal(g[:, 6:], 0.0)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dout = torch.randn(got.shape, generator=gen, device=dev)
+    dout[:, 5:] = 0.0
+    gk = tk.composite_bwd(stream, starts, got, dout, gx, gy, tile_x, tile_y)
+    gp = composite_tiles_bwd_torch(stream, starts, got, dout, gx, gy, tile_x,
+                                   tile_y)
+    n_pairs = int(starts[-1])
+    gk_np, gp_np = gk.cpu().numpy(), gp.cpu().numpy()
+    scale = max(np.abs(gp_np[:, :n_pairs]).max(initial=0.0), 1e-6)
+    np.testing.assert_allclose(gk_np[:, :n_pairs], gp_np[:, :n_pairs],
+                               atol=1e-5 * scale, rtol=1e-4)
+    np.testing.assert_array_equal(gk_np[:, n_pairs:], 0.0)
+    np.testing.assert_array_equal(gk_np[10:], 0.0)
+    again = tk.composite_bwd(stream, starts, got, dout, gx, gy, tile_x,
+                             tile_y)
+    np.testing.assert_array_equal(again.cpu().numpy(), gk_np)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_x,tile_y,grid,counts,opacity_range,sigma", [
+    pytest.param(16, 8, (3, 2), (40, 0, 133, 7, 300, 65), (0.2, 0.95),
+                 (1.0, 6.0), id="non_square_16x8"),
+    pytest.param(5, 5, (2, 2), (9, 30, 0, 61), (0.2, 0.95), (1.0, 6.0),
+                 id="partial_warp_5x5"),
+    pytest.param(7, 9, (2, 2), (1, 50, 129, 3), (0.2, 0.95), (1.0, 6.0),
+                 id="odd_7x9"),
+    pytest.param(16, 16, (2, 2), (0, 0, 45, 0), (0.2, 0.95), (1.0, 6.0),
+                 id="empty_tiles"),
+    # not multiples of the unroll (4) or of the batch (128)
+    pytest.param(16, 16, (5, 2), (1, 2, 3, 5, 127, 129, 131, 255, 257, 259),
+                 (0.05, 0.3), (1.0, 6.0), id="ragged_counts"),
+    # pixels saturate after a few pairs, at every position of a group of
+    # 4; the 300-pair tile leaves through the whole-tile exit
+    pytest.param(16, 16, (2, 2), (67, 300, 5, 131), (0.9, 0.99),
+                 (4.0, 12.0), id="early_exit_in_group"),
+    # faint pairs: no pixel saturates, every batch is read and the ring
+    # wraps several times
+    pytest.param(16, 16, (3, 1), (700, 650, 613), (0.005, 0.02),
+                 (2.0, 10.0), id="multi_stage"),
+    # an odd tile whose ranges read one to six ring stages
+    pytest.param(7, 9, (3, 2), (0, 3, 130, 257, 700, 61), (0.02, 0.6),
+                 (1.0, 6.0), id="odd_multi_stage"),
+])
+def test_cuda_tile_shapes_and_ranges_match_plain(cuda_device, tile_x, tile_y,
+                                                 grid, counts, opacity_range,
+                                                 sigma):
+    stream, starts, gx, gy = synthetic_stream(cuda_device, 11, counts, grid,
+                                              tile_x, tile_y, opacity_range,
+                                              sigma)
+    check_both_kernels(cuda_device, stream, starts, gx, gy, tile_x, tile_y,
+                       seed=5)
+
