@@ -1,19 +1,82 @@
-"""Configuration dataclasses of the port.
+"""Configuration dataclasses of the port, and the CLI reflection over them.
 
-Copies of the groups of ``s3gaussian_tpu/config.py`` that the port reads,
-with the same field names and defaults (a CPU test holds every field
-against the JAX package's), so a config written for one package
-configures the other.  Fields that only steer the TPU build are left
-out: ``ModelHiddenParams.remat_deform`` and ``RasterConfig``'s
+Copies of the groups of ``s3gaussian_tpu/config.py``, with the same field
+names and defaults (a CPU test holds every field against the JAX
+package's), so a config written for one package configures the other.
+Fields that only steer the TPU build are left out:
+``ModelHiddenParams.remat_deform`` and ``RasterConfig``'s
 ``max_pairs_per_tile`` (the jnp oracle's cap), ``use_pallas``,
 ``sort_bf16``, ``sort_hier``, ``multicam_serialize`` and
-``multicam_scan``.
+``multicam_scan``.  Their flags are unknown to the port's CLI, and a
+config file that sets them has those keys ignored, as it has any key a
+group does not know.
+
+``add_group_args``/``extract_group`` turn a group into CLI flags and back
+with the reference's quirks: every bool is ``store_true`` (so a field
+that defaults to True, such as ``render_process``, cannot be switched off
+from the command line, only from a config file), and the shorthand
+fields also get ``-<first letter>``.  ``apply_config_file`` execs a
+reference-style Python config that assigns ``<GroupName> = dict(...)``.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
+
+
+@dataclass
+class ModelParams:
+    """Data and scene loading options (reference ``ModelParams``)."""
+
+    debug_test: bool = False
+    sh_degree: int = 3
+    # explicit pool capacity; 0 = next_pow2(1.5x the init count)
+    pool_capacity: int = 0
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = False
+    data_device: str = "tpu"
+    eval: bool = True
+    # test/train split
+    stride: int = 0
+    # training snapshots
+    render_process: bool = True
+    # waymo clip time range
+    start_time: int = 0
+    end_time: int = 49
+    original_start_time: int = 0
+    num_objs: int = 256
+    num_pts: int = 1500000
+    # mask loading options
+    load_sky_mask: bool = False
+    load_panoptic_mask: bool = False
+    load_sam_mask: bool = False
+    load_dynamic_mask: bool = True
+    load_feat_map: bool = True
+    # waymo
+    n_views: int = 100
+    random_init: bool = False
+    train_split: bool = False
+    num_classes: int = 200
+    load_intrinsic: bool = False
+    load_c2w: bool = False
+    # image load size (the reference hardcodes 640x960)
+    load_h: int = 640
+    load_w: int = 960
+    # occupancy grid
+    save_occ_grid: bool = True
+    occ_voxel_size: float = 0.4
+    recompute_occ_grid: bool = False
+
+    _shorthand = ("source_path", "model_path", "images", "resolution",
+                  "white_background")
+    __hash__ = object.__hash__
 
 
 @dataclass
@@ -178,3 +241,77 @@ class RasterConfig:
     @property
     def max_pairs(self) -> int:
         return self.max_visible * self.rect_cap
+
+
+# ---------------------------------------------------------------------------
+# argparse reflection (reference arguments/__init__.py:19-45)
+# ---------------------------------------------------------------------------
+
+def add_group_args(parser: argparse.ArgumentParser, cls, name: str) -> None:
+    """Register a dataclass's fields as CLI flags: bools ``store_true``,
+    int/float/str typed, dict/list fields config-file only, shorthand
+    fields also ``-<first letter>``."""
+    group = parser.add_argument_group(name)
+    shorthand = getattr(cls, "_shorthand", ())
+    for f in dataclasses.fields(cls):
+        if f.name.startswith("_"):
+            continue
+        default = f.default if f.default is not dataclasses.MISSING else None
+        if f.default_factory is not dataclasses.MISSING:  # type: ignore
+            default = f.default_factory()  # type: ignore
+        flags = ["--" + f.name]
+        if f.name in shorthand:
+            flags.append("-" + f.name[0])
+        if f.type in (bool, "bool"):
+            group.add_argument(*flags, default=default, action="store_true")
+        elif f.type in (int, "int", float, "float", str, "str"):
+            kind = {"int": int, "float": float, "str": str}.get(f.type, f.type)
+            group.add_argument(*flags, default=default, type=kind)
+
+
+def extract_group(cls, args: argparse.Namespace):
+    """A dataclass instance from parsed args (fields without a flag keep
+    their defaults); ``source_path`` made absolute."""
+    inst = cls(**{f.name: getattr(args, f.name)
+                  for f in dataclasses.fields(cls)
+                  if not f.name.startswith("_") and hasattr(args, f.name)})
+    if isinstance(inst, ModelParams) and inst.source_path:
+        inst.source_path = os.path.abspath(inst.source_path)
+    return inst
+
+
+GROUPS = ("ModelParams", "PipelineParams", "OptimizationParams",
+          "ModelHiddenParams", "RasterConfig")
+
+
+def load_config_overrides(path: str) -> Dict[str, Dict[str, Any]]:
+    """Exec a reference-style config file (``arguments/nvs.py`` etc.) that
+    assigns ``<GroupName> = dict(...)``; returns the dicts by group."""
+    scope: Dict[str, Any] = {}
+    with open(path) as f:
+        code = f.read()
+    exec(compile(code, path, "exec"), scope)  # noqa: S102 - trusted local file
+    return {name: scope[name] for name in GROUPS
+            if isinstance(scope.get(name), dict)}
+
+
+def merge_hparams(group, overrides: Dict[str, Any]):
+    """Set the keys of ``overrides`` that ``group`` has; others are
+    ignored (reference utils/params_utils.py:1-9)."""
+    for k, v in overrides.items():
+        if hasattr(group, k):
+            setattr(group, k, v)
+    return group
+
+
+def apply_config_file(path: str, model: ModelParams, pipe: PipelineParams,
+                      opt: OptimizationParams, hyper: ModelHiddenParams,
+                      cfg: Optional[RasterConfig] = None):
+    ov = load_config_overrides(path)
+    merge_hparams(model, ov.get("ModelParams", {}))
+    merge_hparams(pipe, ov.get("PipelineParams", {}))
+    merge_hparams(opt, ov.get("OptimizationParams", {}))
+    merge_hparams(hyper, ov.get("ModelHiddenParams", {}))
+    if cfg is not None:
+        merge_hparams(cfg, ov.get("RasterConfig", {}))
+    return model, pipe, opt, hyper

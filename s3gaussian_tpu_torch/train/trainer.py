@@ -1,7 +1,8 @@
 """The single-camera train step, coarse and fine (port of
 ``s3gaussian_tpu/train/trainer.py``: ``TrainState``, ``init_state``,
 ``reinit_optimizer``, ``lr_dict``, ``compute_loss``,
-``apply_param_update`` and ``train_step``).
+``apply_param_update``, ``train_step``, density control and
+``probe_pool``).
 
   loss = L1(rgb)
        + λ_dx·mean|dx| + λ_dshs·mean|dshs|              (fine)
@@ -15,15 +16,16 @@ counterpart): render forward and backward through the CUDA compositors,
 the losses, dead-row gradient masking, the NaN watchdog, the scheduled
 per-group Adam and the densification statistics fed by the gradient of
 the ``mean2d_tap``.  The state's tensors are updated in place; the step
-returns the state with its new counters.  The scanned and multicam
-variants, density control and the opacity reset are not ported yet
+returns the state with its new counters.  ``densify_step`` and
+``opacity_reset_step`` edit the pool's rows and their Adam moments and
+return a new state.  The scanned and multicam variants are not ported yet
 (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,13 +36,16 @@ from s3gaussian_tpu_torch.data.cameras import Camera
 from s3gaussian_tpu_torch.models import hexplane as hx
 from s3gaussian_tpu_torch.models.deformation import DeformationField
 from s3gaussian_tpu_torch.models.pool import (GaussianPool, PoolStats,
-                                              add_densification_stats)
+                                              add_densification_stats,
+                                              densify_and_prune,
+                                              reset_opacity)
 from s3gaussian_tpu_torch.render.renderer import render
 from s3gaussian_tpu_torch.train.losses import (depth_loss, l1_loss, l2_loss,
                                                psnr, ssim)
 from s3gaussian_tpu_torch.train.lr import expon_lr
-from s3gaussian_tpu_torch.train.optim import (AdamState, adam_update,
-                                              init_adam, path_group)
+from s3gaussian_tpu_torch.train.optim import (B1, B2, EPS, AdamState,
+                                              adam_update, init_adam,
+                                              path_group)
 
 
 @dataclass
@@ -253,3 +258,117 @@ def train_step(state: TrainState, camera: Camera, stage: str,
                                    aux["radii"], aux["visible"], opt,
                                    spatial_lr_scale)
     return new_state, aux
+
+
+def _pool_rows(state: TrainState) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    return {name: (state.adam.mu["pool"][name], state.adam.nu["pool"][name])
+            for name in state.pool.param_dict()}
+
+
+def _with_pool_rows(state: TrainState, pool: GaussianPool, rows,
+                    **changes) -> TrainState:
+    adam = AdamState(
+        mu={"pool": {k: v[0] for k, v in rows.items()},
+            "deform": state.adam.mu["deform"]},
+        nu={"pool": {k: v[1] for k, v in rows.items()},
+            "deform": state.adam.nu["deform"]},
+        count=state.adam.count)
+    return replace(state, pool=pool, adam=adam, **changes)
+
+
+@torch.no_grad()
+def densify_step(state: TrainState, generator: torch.Generator,
+                 grad_threshold: float, opacity_threshold: float,
+                 scene_extent: float, max_screen_size: Optional[float],
+                 opt: OptimizationParams, world_prune: Optional[bool] = None
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """Clone + split + prune with the Adam-row surgery (reference
+    train.py:489-516).  The split noise is drawn from ``generator``, which
+    lives on the pool's device.  Returns the new state (statistics zeroed)
+    and the info dict of 0-d tensors."""
+    pool = state.pool
+    noise = torch.randn((2,) + tuple(pool.xyz.shape), generator=generator,
+                        device=pool.xyz.device)
+    new_pool, rows, stats, info = densify_and_prune(
+        pool, _pool_rows(state), state.stats, (noise[0], noise[1]),
+        grad_threshold, opacity_threshold, scene_extent, opt.percent_dense,
+        max_screen_size, max_points=2_000_000,
+        size_prune_cap=opt.size_prune_cap, world_prune=world_prune)
+    return _with_pool_rows(state, new_pool, rows, stats=stats), info
+
+
+@torch.no_grad()
+def opacity_reset_step(state: TrainState) -> TrainState:
+    pool, rows = reset_opacity(state.pool, _pool_rows(state))
+    return _with_pool_rows(state, pool, rows)
+
+
+@torch.no_grad()
+def probe_pool(state: TrainState, opt: OptimizationParams,
+               spatial_lr_scale: float) -> Dict[str, torch.Tensor]:
+    """Diagnostic snapshot of pool and optimizer health (0-d tensors):
+    masked quantiles of the activated opacity and world scale, the
+    accumulated max screen radius, and per-group Adam effective step
+    sizes lr·mean|m̂ / (√v̂ + ε) over alive rows.  The field's groups are
+    named after the JAX pytree's top-level keys: ``grid``, ``mlp`` and
+    ``empty_voxel``."""
+    alive = state.pool.alive
+    op = torch.sigmoid(state.pool.opacity[:, 0])
+    ws = torch.exp(state.pool.scaling).amax(1)
+
+    def mq(x, q):
+        return torch.nanquantile(torch.where(alive, x, torch.nan), q)
+
+    out = {
+        "op_q01": mq(op, 0.01), "op_q50": mq(op, 0.5),
+        "op_q99": mq(op, 0.99),
+        "op_lo": ((op < 0.01) & alive).sum(dtype=torch.int32),
+        "ws_q50": mq(ws, 0.5), "ws_q99": mq(ws, 0.99),
+        "ws_max": torch.where(alive, ws, 0.0).amax(),
+        "r2d_q99": mq(state.stats.max_radii2d, 0.99),
+        "r2d_max": state.stats.max_radii2d.amax(),
+    }
+    lrs = lr_dict(state.step, opt, spatial_lr_scale)
+    c = torch.clamp(state.adam.count.to(torch.float32), min=1.0)
+    c1, c2 = 1 - torch.pow(B1, c), 1 - torch.pow(B2, c)
+
+    def mag(m, v):
+        return torch.abs(m / c1) / (torch.sqrt(v / c2) + EPS)
+
+    for name, m in state.adam.mu["pool"].items():
+        mask = alive.reshape((-1,) + (1,) * (m.dim() - 1))
+        g = mag(m, state.adam.nu["pool"][name])
+        mean = (torch.where(mask, g, 0.0).sum()
+                / torch.clamp(mask.expand_as(g).sum(), min=1))
+        out[f"estep_{name}"] = lrs[name] * mean
+    sums: Dict[str, List[torch.Tensor]] = {}
+    for name, m in state.adam.mu["deform"].items():
+        top = name.split(".")[0]
+        key = top if top in ("grid", "empty_voxel") else "mlp"
+        sums.setdefault(key, []).append(mag(m, state.adam.nu["deform"][name]))
+    for key, mags in sorted(sums.items()):
+        tot = sum(x.sum() for x in mags)
+        cnt = float(sum(x.numel() for x in mags))
+        out[f"estep_{key}"] = (lrs["grid" if key == "grid" else "deformation"]
+                               * tot / max(cnt, 1.0))
+    out["lr_xyz"] = lrs["xyz"]
+    out["lr_grid"] = lrs["grid"]
+    out["lr_deformation"] = lrs["deformation"]
+    return out
+
+
+def densify_schedule(iteration: int, stage: str, opt: OptimizationParams
+                     ) -> Tuple[float, float]:
+    """(gradient, opacity) thresholds: constant in the coarse stage,
+    annealed linearly over the fine stage and clamped past
+    ``densify_until_iter`` (reference train.py:494-499)."""
+    if stage == "coarse":
+        return opt.densify_grad_threshold_coarse, opt.opacity_threshold_coarse
+    frac = min(iteration / max(opt.densify_until_iter, 1), 1.0)
+    op_thr = (opt.opacity_threshold_fine_init
+              - frac * (opt.opacity_threshold_fine_init
+                        - opt.opacity_threshold_fine_after))
+    gr_thr = (opt.densify_grad_threshold_fine_init
+              - frac * (opt.densify_grad_threshold_fine_init
+                        - opt.densify_grad_threshold_after))
+    return gr_thr, op_thr

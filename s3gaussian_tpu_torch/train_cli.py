@@ -1,0 +1,326 @@
+"""Training CLI of the port (counterpart of the repository's ``train.py``):
+
+    python -m s3gaussian_tpu_torch.train_cli -s <waymo_clip> \\
+        --model_path out/ --skip_final_eval [--configs arguments/nvs.py] \\
+        [--start_checkpoint out/chkpnt_coarse_5000] \\
+        [--prior_checkpoint out_prev/chkpnt_fine_50000]
+
+It reads the clip, builds the pool from its LiDAR points and trains the
+two stages (coarse, then fine) one camera per step on the card, with
+density control every ``densification_interval`` steps, the opacity
+reset, ``logger.json`` telemetry (every 100 steps, or ``S3G_LOG_EVERY``),
+training snapshots, checkpoints and a final PLY.  The flags are those of
+``train.py`` but ``--steps_per_dispatch`` (a scanned block of steps has no
+counterpart here) and the TPU-only fields of the config groups.
+
+Before it reads the scene it refuses, naming the ROADMAP.md item each
+waits for, every run that would reach code the port does not have yet:
+``--multicam > 1``, ``--batch_size > 1``, ``--eval_only``, a final eval
+sweep (pass ``--skip_final_eval`` or ``--bench_iters``), the mid-training
+eval at iteration 30000, ``cull_before_deform`` and ``big_budget > 0``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib.util
+import json
+import os
+import random
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from s3gaussian_tpu_torch.config import (ModelHiddenParams, ModelParams,
+                                         OptimizationParams, PipelineParams,
+                                         RasterConfig, add_group_args,
+                                         apply_config_file, extract_group)
+from s3gaussian_tpu_torch.data.cameras import write_cameras_json
+from s3gaussian_tpu_torch.data.scene import load_scene
+from s3gaussian_tpu_torch.device import configure_device
+from s3gaussian_tpu_torch.models.deformation import DeformationField
+from s3gaussian_tpu_torch.train import checkpoints as ckpt
+from s3gaussian_tpu_torch.train.trainer import (densify_schedule,
+                                                densify_step, init_state,
+                                                opacity_reset_step,
+                                                probe_pool, reinit_optimizer,
+                                                train_step)
+
+MID_EVAL_ITER = 30000
+
+
+def auto_max_visible(points, cams, capacity: int, growth: float = 2.0,
+                     lane: int = 2048) -> int:
+    """``--max_visible 0``: ``growth`` x the largest per-camera count of
+    init points in the frustum (depth > 0.2, the projector's 1.3·tan(fov/2)
+    clamp as its edge), lane-rounded and clamped to the pool capacity."""
+    pts = np.ascontiguousarray(np.asarray(points, np.float32))
+    best = 0
+    for cam in cams:
+        view = cam.world_view.cpu().numpy()
+        p = pts @ view[:3, :3] + view[3, :3]
+        z = p[:, 2]
+        tx = 1.3 * np.tan(0.5 * cam.fovx)
+        ty = 1.3 * np.tan(0.5 * cam.fovy)
+        vis = (z > 0.2) & (np.abs(p[:, 0]) < tx * z) & (np.abs(p[:, 1]) < ty * z)
+        best = max(best, int(vis.sum()))
+    nr = int(np.ceil(growth * best / lane)) * lane
+    return max(lane, min(nr, capacity))
+
+
+def make_deformation(hyper: ModelHiddenParams, seed: int,
+                     device: torch.device) -> DeformationField:
+    """The deformation field, its initial weights drawn from ``seed``."""
+    return DeformationField(hyper, torch.Generator().manual_seed(seed),
+                            device)
+
+
+def not_ported(args, opt: OptimizationParams,
+               cfg: RasterConfig) -> Optional[str]:
+    """What of this run the port does not have yet, with the ROADMAP.md
+    item it waits for; None if the whole run is ported."""
+    if opt.multicam > 1:
+        return "--multicam > 1 waits for rig batching (ROADMAP.md §1 item 4)"
+    if opt.batch_size > 1:
+        return ("--batch_size > 1 waits for data parallelism (ROADMAP.md §1 "
+                "item 5)")
+    if args.eval_only:
+        return "--eval_only waits for the eval sweep (ROADMAP.md §1 item 3)"
+    if not args.bench_iters:
+        if not args.skip_final_eval:
+            return ("the final eval sweep waits for the eval port (ROADMAP.md "
+                    "§1 item 3); pass --skip_final_eval")
+        if max(opt.coarse_iterations, opt.iterations) >= MID_EVAL_ITER:
+            return (f"the mid-training eval at iteration {MID_EVAL_ITER} "
+                    f"waits for the eval port (ROADMAP.md §1 item 3)")
+    if cfg.cull_before_deform:
+        return ("cull_before_deform waits for take_compact (ROADMAP.md §1 "
+                "item 1)")
+    if cfg.big_budget > 0:
+        return ("big_budget > 0 waits for two-class pair emission "
+                "(ROADMAP.md §1 item 1)")
+    return None
+
+
+def snapshot_due(iteration: int) -> bool:
+    """The training-snapshot cadence (reference train.py:477-487)."""
+    return ((iteration < 10000 and iteration % 1000 == 999)
+            or (iteration < 30000 and iteration % 2000 == 1999)
+            or iteration % 3000 == 2999)
+
+
+def main(argv=None, device: str = "cuda"):
+    """Run the CLI on ``device``; returns the final train state."""
+    parser = argparse.ArgumentParser(description="S3Gaussian training "
+                                     "(PyTorch port)")
+    add_group_args(parser, ModelParams, "Loading Parameters")
+    add_group_args(parser, OptimizationParams, "Optimization Parameters")
+    add_group_args(parser, PipelineParams, "Pipeline Parameters")
+    add_group_args(parser, ModelHiddenParams, "ModelHiddenParams")
+    add_group_args(parser, RasterConfig, "Rasterizer")
+    parser.add_argument("--seed", type=int, default=6666)
+    parser.add_argument("--expname", type=str, default="waymo")
+    parser.add_argument("--configs", type=str, default="")
+    parser.add_argument("--eval_only", action="store_true")
+    parser.add_argument("--skip_final_eval", action="store_true",
+                        help="skip the end-of-training eval sweep")
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[30000, 50000])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--prior_checkpoint", type=str, default=None)
+    parser.add_argument("--bench_iters", type=int, default=0,
+                        help="run only N timed iterations per stage")
+    args = parser.parse_args(argv)
+
+    model = extract_group(ModelParams, args)
+    opt = extract_group(OptimizationParams, args)
+    pipe = extract_group(PipelineParams, args)
+    hyper = extract_group(ModelHiddenParams, args)
+    cfg = extract_group(RasterConfig, args)
+    if args.configs:
+        apply_config_file(args.configs, model, pipe, opt, hyper, cfg)
+    why = not_ported(args, opt, cfg)
+    if why:
+        raise SystemExit(f"train_cli: not ported yet: {why}")
+    snapshots = model.render_process and not args.bench_iters
+    if snapshots and importlib.util.find_spec("PIL") is None:
+        raise SystemExit("train_cli: the training snapshots (render_process) "
+                         "need Pillow, which is not installed")
+
+    random.seed(args.seed)
+    np.random.seed(args.seed % (2 ** 31))
+    dev = configure_device(device)
+
+    if not model.model_path:
+        model.model_path = os.path.join("./output", args.expname)
+    os.makedirs(model.model_path, exist_ok=True)
+    # cfg_args records the effective configuration, config file merged in
+    dump = dict(vars(args))
+    for grp in (model, opt, pipe, hyper, cfg):
+        for fld in dataclasses.fields(grp):
+            if not fld.name.startswith("_"):
+                dump[fld.name] = getattr(grp, fld.name)
+    with open(os.path.join(model.model_path, "cfg_args"), "w") as f:
+        f.write(repr(dump))
+
+    print(f"Loading scene from {model.source_path}")
+    scene = load_scene(model, pool_capacity=model.pool_capacity or None,
+                       device=dev)
+    print(f"  {len(scene.info.points)} init points, "
+          f"{len(scene.get_train_cameras())} train cams, "
+          f"{len(scene.get_test_cameras())} test cams, "
+          f"extent {scene.cameras_extent:.2f}")
+    write_cameras_json(os.path.join(model.model_path, "cameras.json"),
+                       scene.get_test_cameras(), scene.get_train_cameras())
+
+    state = init_state(scene.pool, make_deformation(hyper, args.seed, dev),
+                       scene.aabb)
+    bg = torch.tensor([1.0, 1.0, 1.0] if model.white_background
+                      else [0.0, 0.0, 0.0], device=dev)
+    if cfg.max_visible == 0:
+        cfg.max_visible = auto_max_visible(scene.info.points,
+                                           scene.get_train_cameras(),
+                                           scene.pool.capacity)
+        print(f"auto-sized max_visible = {cfg.max_visible}")
+
+    start_stage, start_iter = "coarse", 0
+    if args.start_checkpoint:
+        state, start_stage, start_iter = ckpt.load_checkpoint(
+            args.start_checkpoint, state)
+        print(f"resumed from {args.start_checkpoint} at "
+              f"{start_stage}:{start_iter}")
+    logger_path = os.path.join(model.model_path, "logger.json")
+
+    def log(entry):
+        with open(logger_path, "a") as f:
+            json.dump(entry, f)
+            f.write("\n")
+
+    def scene_reconstruction(state, stage, first_iter, final_iter):
+        if first_iter <= 1:
+            # a stage starts with fresh Adam moments and schedules; a
+            # resume keeps the loaded ones
+            state = reinit_optimizer(state)
+        cams = scene.get_train_cameras()
+        stack = []
+        ema_loss = 0.0
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        active_sh = 0
+        t_start = time.time()
+        n_done = 0
+        log_every = max(int(os.environ.get("S3G_LOG_EVERY", "100")), 1)
+
+        def pop_cam():
+            nonlocal stack
+            if not stack:
+                stack = list(range(len(cams)))
+                random.shuffle(stack)
+            return cams[stack.pop()]
+
+        iteration = first_iter
+        while iteration <= final_iter:
+            if iteration % 1000 == 0:
+                active_sh = min(active_sh + 1, model.sh_degree)
+            state, aux = train_step(state, pop_cam(), stage, active_sh, hyper,
+                                    opt, pipe, cfg, scene.cameras_extent, bg)
+            n_done += 1
+
+            if iteration % log_every == 0 or iteration == first_iter:
+                m = {k: float(v) for k, v in aux["metrics"].items()}
+                ema_loss = 0.4 * m["loss"] + 0.6 * ema_loss
+                vis_radii = aux["radii"].to(torch.float32) * aux["visible"]
+                entry = {"step": iteration, "stage": stage,
+                         "Loss": round(ema_loss, 7),
+                         "psnr": round(m["psnr"], 2),
+                         "point": int(state.pool.n_alive),
+                         "n_pairs": int(aux["n_pairs"]),
+                         "ovf_rect": int(aux["overflow_rect"]),
+                         "ovf_vis": int(aux["overflow_visible"]),
+                         "ovf_pairs": int(aux["overflow_pairs"]),
+                         "nan_skips": int(state.nan_skips),
+                         "it_per_s": round(n_done / (time.time() - t_start),
+                                           3),
+                         "radii_max": round(float(vis_radii.max()), 1),
+                         "n_r20": int((vis_radii > 20.0).sum())}
+                if os.environ.get("S3G_PROBE"):
+                    pr = probe_pool(state, opt, scene.cameras_extent)
+                    entry["probe"] = {k: round(float(v), 8)
+                                      for k, v in pr.items()}
+                print(entry)
+                log(entry)
+
+            if snapshots and snapshot_due(iteration):
+                from s3gaussian_tpu_torch.eval.snapshots import \
+                    render_training_image
+                for tag, split in (("train", cams),
+                                   ("test", scene.get_test_cameras())):
+                    if split:
+                        render_training_image(
+                            model.model_path, stage + tag, iteration,
+                            split[iteration % len(split)], state.pool,
+                            state.deform, pipe, bg, state.aabb, active_sh,
+                            stage, cfg, elapsed=time.time() - t_start)
+
+            # density control (reference train.py:489-516)
+            if iteration < opt.densify_until_iter:
+                gthr, othr = densify_schedule(iteration, stage, opt)
+                size_thr = (20.0 if iteration > opt.opacity_reset_interval
+                            else None)
+                if (iteration > opt.densify_from_iter
+                        and iteration % opt.densification_interval == 0):
+                    state, info = densify_step(state, gen, gthr, othr,
+                                               scene.cameras_extent, size_thr,
+                                               opt)
+                    log({"step": iteration, "stage": stage,
+                         "densify": {k: int(v) for k, v in info.items()}})
+                if iteration % opt.opacity_reset_interval == 0:
+                    print("reset opacity")
+                    state = opacity_reset_step(state)
+                    log({"step": iteration, "stage": stage,
+                         "opacity_reset": True})
+            elif (opt.prune_after_densify
+                  and iteration % opt.densification_interval == 0):
+                # prune-only continuation past densify_until_iter: opacity
+                # and world-size prunes, no clone/split and no screen prune
+                _, othr = densify_schedule(iteration, stage, opt)
+                state, info = densify_step(state, gen, 1e30, othr,
+                                           scene.cameras_extent, None, opt,
+                                           world_prune=True)
+                log({"step": iteration, "stage": stage,
+                     "prune_only": {k: int(v) for k, v in info.items()}})
+
+            if iteration in args.checkpoint_iterations:
+                print(f"[ITER {iteration}] saving checkpoint")
+                ckpt.save_checkpoint(model.model_path, stage, iteration,
+                                     state)
+
+            if args.bench_iters and n_done >= args.bench_iters:
+                break
+            iteration += 1
+        return state
+
+    if start_stage == "coarse":
+        state = scene_reconstruction(state, "coarse", start_iter + 1,
+                                     opt.coarse_iterations)
+        ckpt.save_checkpoint(model.model_path, "coarse",
+                             opt.coarse_iterations, state)
+        start_iter = 0
+
+    if args.prior_checkpoint:
+        print(f"transplanting deformation from {args.prior_checkpoint}")
+        state = ckpt.transplant_deformation(args.prior_checkpoint, state)
+
+    state = scene_reconstruction(state, "fine", start_iter + 1,
+                                 opt.iterations)
+    ckpt.save_checkpoint(model.model_path, "fine", opt.iterations, state)
+    ckpt.save_ply_pool(os.path.join(
+        model.model_path, "point_cloud", f"iteration_{opt.iterations}",
+        "point_cloud.ply"), state.pool)
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -16,6 +16,7 @@ from s3gaussian_tpu_torch.ops import binning as tbin
 from s3gaussian_tpu_torch.ops.project import ProjectedGaussians
 
 from scenes import random_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _projected(n, seed, w, h, tile):

@@ -24,6 +24,7 @@ from s3gaussian_tpu_torch.ops import composite as tcomp
 from s3gaussian_tpu_torch.ops import tile_kernels as ttk
 
 from scenes import random_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 TILE = 16
 

@@ -24,6 +24,7 @@ from s3gaussian_tpu_torch.ops import composite as tcomp
 from s3gaussian_tpu_torch.ops import tile_kernels as ttk
 
 from test_torch_composite import HIGH_OPACITY, TILE, binned_scene, torch_pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _cotangent(out, seed):

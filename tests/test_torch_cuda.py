@@ -246,3 +246,164 @@ def test_cuda_tile_shapes_and_ranges_match_plain(cuda_device, tile_x, tile_y,
     check_both_kernels(cuda_device, stream, starts, gx, gy, tile_x, tile_y,
                        seed=5)
 
+
+
+# ---------------------------------------------------------------------------
+# density control on the card
+# ---------------------------------------------------------------------------
+
+DENSITY_CAP = 4096
+DENSITY_BASE = dict(grad_threshold=2e-4, opacity_threshold=0.005,
+                    scene_extent=1.0, percent_dense=0.01,
+                    max_screen_size=None, max_points=2_000_000)
+DENSITY_CASES = {
+    "mixed": {},
+    "size_prune_cap": dict(max_screen_size=20.0, size_prune_cap=0.05,
+                           scene_extent=3.0),
+    "world_prune": dict(grad_threshold=1e30, world_prune=True,
+                        scene_extent=5.0),
+    "exhausted": dict(grad_threshold=1e-5, alive_frac=0.93),
+}
+
+
+def density_inputs(seed, alive_frac=0.6, cap=DENSITY_CAP):
+    """numpy pool fields, Adam rows, statistics and split noise of a
+    mid-training pool (as tests/test_torch_density.py builds them)."""
+    rng = np.random.default_rng(seed)
+    alive = rng.random(cap) < alive_frac
+    rot = rng.normal(size=(cap, 4)).astype(np.float32)
+    rot[~alive] = [1, 0, 0, 0]
+    pool = {"xyz": rng.normal(0, 4, (cap, 3)),
+            "features_dc": rng.normal(size=(cap, 1, 3)),
+            "features_rest": rng.normal(0, 0.2, (cap, 15, 3)),
+            "scaling": rng.uniform(-6.0, 0.0, (cap, 3)),
+            "rotation": rot, "opacity": rng.normal(-1.0, 2.5, (cap, 1))}
+    pool = {k: np.asarray(v, np.float32) for k, v in pool.items()}
+    pool["alive"] = alive
+    names = {"xyz": "xyz", "f_dc": "features_dc", "f_rest": "features_rest",
+             "scaling": "scaling", "rotation": "rotation",
+             "opacity": "opacity"}
+    rows = {g: (rng.normal(0, 1e-3, pool[f].shape).astype(np.float32),
+                np.abs(rng.normal(0, 1e-6, pool[f].shape)).astype(np.float32))
+            for g, f in names.items()}
+    denom = rng.integers(0, 6, cap).astype(np.float32)
+    stats = {"max_radii2d": rng.uniform(0, 40, cap).astype(np.float32),
+             "xyz_grad_accum": (denom * rng.uniform(0, 4e-4, cap)).astype(
+                 np.float32),
+             "denom": denom}
+    noise = rng.normal(size=(2, cap, 3)).astype(np.float32)
+    return pool, rows, stats, noise
+
+
+def density_on(dev, pool, rows, stats):
+    from s3gaussian_tpu_torch.models import pool as tpool
+
+    def t(x):
+        return torch.tensor(x, device=dev)
+
+    return (tpool.GaussianPool(**{k: t(v) for k, v in pool.items()}),
+            {g: (t(m), t(v)) for g, (m, v) in rows.items()},
+            tpool.PoolStats(**{k: t(v) for k, v in stats.items()}))
+
+
+def assert_density_close(got, want):
+    """Counts, masks and moments exact; floats atol 1e-6·max|CPU|."""
+    gp, grows, gstats, ginfo = got
+    wp, wrows, wstats, winfo = want
+    assert {k: int(v) for k, v in ginfo.items()} == \
+        {k: int(v) for k, v in winfo.items()}
+    np.testing.assert_array_equal(gp.alive.cpu().numpy(), wp.alive.numpy())
+    for g, v in wp.param_dict().items():
+        w = v.numpy()
+        np.testing.assert_allclose(gp.param_dict()[g].cpu().numpy(), w,
+                                   rtol=0, atol=1e-6 * np.abs(w).max(),
+                                   err_msg=g)
+        for a, b in zip(grows[g], wrows[g]):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(),
+                                          err_msg=g)
+    for f in ("max_radii2d", "xyz_grad_accum", "denom"):
+        assert not getattr(gstats, f).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DENSITY_CASES))
+def test_cuda_densify_and_prune_matches_cpu(cuda_device, case):
+    """The same call on the card and on the CPU with the same noise; no
+    index outside [0, Nc) reaches an indexing operator on the card."""
+    from s3gaussian_tpu_torch.models import pool as tpool
+    from torch_index_bounds import IndexBounds
+
+    kw = dict(DENSITY_BASE, **DENSITY_CASES[case])
+    pool, rows, stats, noise = density_inputs(
+        sorted(DENSITY_CASES).index(case), kw.pop("alive_frac", 0.6))
+    want = tpool.densify_and_prune(*density_on("cpu", pool, rows, stats),
+                                   tuple(torch.tensor(noise)), **kw)
+    with IndexBounds() as bounds:
+        got = tpool.densify_and_prune(
+            *density_on(cuda_device, pool, rows, stats),
+            tuple(torch.tensor(noise, device=cuda_device)), **kw)
+        torch.cuda.synchronize()
+    bounds.assert_within(DENSITY_CAP)
+    assert got[0].xyz.device.type == cuda_device.type
+    assert_density_close(got, want)
+    info = {k: int(v) for k, v in want[3].items()}
+    assert info["n_cloned"] + info["n_split"] + info["n_pruned"] > 0
+    if case == "exhausted":
+        assert info["overflow"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_densify_and_prune_never_waits_for_the_host(cuda_device):
+    """No operation of densify_and_prune synchronises with the host: the
+    counts stay 0-d tensors on the card until the caller reads them."""
+    from s3gaussian_tpu_torch.models import pool as tpool
+
+    kw = dict(DENSITY_BASE, **DENSITY_CASES["size_prune_cap"])
+    pool, rows, stats, noise = density_inputs(3)
+    args = density_on(cuda_device, pool, rows, stats)
+    noise = tuple(torch.tensor(noise, device=cuda_device))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, _, info = tpool.densify_and_prune(*args, noise, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(v.device.type == "cuda" and v.dim() == 0
+               for v in info.values())
+    assert int(info["n_pruned"]) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_densify_step_draws_its_noise_on_the_card(cuda_device):
+    """densify_step draws the split noise from a generator on the card and
+    edits the state there; the same draws on the CPU give the same
+    result."""
+    from s3gaussian_tpu_torch.models import pool as tpool
+    from s3gaussian_tpu_torch.train.optim import AdamState
+    from s3gaussian_tpu_torch.train.trainer import TrainState, densify_step
+    from s3gaussian_tpu_torch.config import OptimizationParams
+
+    pool, rows, stats, _ = density_inputs(7)
+    p, r, s = density_on(cuda_device, pool, rows, stats)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    state = TrainState(
+        pool=p, deform=None,
+        adam=AdamState(mu={"pool": {g: m for g, (m, _) in r.items()},
+                           "deform": {}},
+                       nu={"pool": {g: v for g, (_, v) in r.items()},
+                           "deform": {}}, count=zero + 3),
+        stats=s, step=zero + 40, aabb=torch.zeros(2, 3, device=cuda_device),
+        nan_skips=zero)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    new, info = densify_step(state, gen, 2e-4, 0.005, 1.0, 20.0,
+                             OptimizationParams())
+    noise = torch.randn((2, DENSITY_CAP, 3), device=cuda_device,
+                        generator=torch.Generator(
+                            device=cuda_device).manual_seed(5)).cpu()
+    want = tpool.densify_and_prune(*density_on("cpu", pool, rows, stats),
+                                   (noise[0], noise[1]), 2e-4, 0.005, 1.0,
+                                   0.01, 20.0, 2_000_000)
+    got_rows = {g: (new.adam.mu["pool"][g], new.adam.nu["pool"][g])
+                for g in rows}
+    assert_density_close((new.pool, got_rows, new.stats, info), want)
+    assert int(new.step) == 40 and int(new.adam.count) == 3

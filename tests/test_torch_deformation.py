@@ -25,6 +25,7 @@ from s3gaussian_tpu_torch.ops import gridsample as tgs
 from s3gaussian_tpu_torch.weights import deformation_from_numpy
 
 import tiny_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(tiny_config.ModelHiddenParams,
             kplanes_config={"grid_dimensions": 2, "input_coordinate_dim": 4,

@@ -38,6 +38,7 @@ from s3gaussian_tpu_torch.weights import _deform_leaves, deformation_from_numpy
 
 from scenes import random_scene
 import tiny_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 W = H = 32
 J_CFG = JRasterConfig(max_visible=128, rect_w=8, rect_h=8, chunk=16,

@@ -18,6 +18,7 @@ from s3gaussian_tpu_torch.ops import sh as tsh
 from s3gaussian_tpu_torch.ops import transforms as ttf
 
 from scenes import random_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -29,6 +29,7 @@ from s3gaussian_tpu_torch.models.pool import create_from_pcd as t_create_from_pc
 from s3gaussian_tpu_torch.render.renderer import render as t_render
 from s3gaussian_tpu_torch.weights import (POOL_FIELDS, deformation_from_numpy,
                                           pool_from_numpy)
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 64, 96
 N, CAP = 260, 288

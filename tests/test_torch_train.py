@@ -48,6 +48,7 @@ from s3gaussian_tpu_torch.train.lr import expon_lr as t_expon_lr
 from s3gaussian_tpu_torch.weights import _deform_leaves, train_state_from_numpy
 
 import tiny_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 48, 64
 N, CAP = 220, 256
