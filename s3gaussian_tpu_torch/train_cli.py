@@ -1,23 +1,28 @@
 """Training CLI of the port (counterpart of the repository's ``train.py``):
 
     python -m s3gaussian_tpu_torch.train_cli -s <waymo_clip> \\
-        --model_path out/ --skip_final_eval [--configs arguments/nvs.py] \\
+        --model_path out/ [--configs arguments/nvs.py] \\
         [--start_checkpoint out/chkpnt_coarse_5000] \\
         [--prior_checkpoint out_prev/chkpnt_fine_50000]
+    python -m s3gaussian_tpu_torch.train_cli -s <waymo_clip> \\
+        --model_path out/ --eval_only
 
 It reads the clip, builds the pool from its LiDAR points and trains the
 two stages (coarse, then fine) one camera per step on the card, with
 density control every ``densification_interval`` steps, the opacity
 reset, ``logger.json`` telemetry (every 100 steps, or ``S3G_LOG_EVERY``),
-training snapshots, checkpoints and a final PLY.  The flags are those of
-``train.py`` but ``--steps_per_dispatch`` (a scanned block of steps has no
-counterpart here) and the TPU-only fields of the config groups.
+training snapshots, checkpoints, a final PLY and the evaluation sweep
+(``eval/video.py::do_evaluation``: at iteration 30000 and after
+training, unless ``--skip_final_eval``).  ``--eval_only`` restores the
+latest checkpoint under ``--model_path`` and runs only the sweep.  The
+flags are those of ``train.py`` but ``--steps_per_dispatch`` (a scanned
+block of steps has no counterpart here) and the TPU-only fields of the
+config groups.
 
 Before it reads the scene it refuses, naming the ROADMAP.md item each
 waits for, every run that would reach code the port does not have yet:
-``--multicam > 1``, ``--batch_size > 1``, ``--eval_only``, a final eval
-sweep (pass ``--skip_final_eval`` or ``--bench_iters``), the mid-training
-eval at iteration 30000, ``cull_before_deform`` and ``big_budget > 0``.
+``--multicam > 1``, ``--batch_size > 1``, ``cull_before_deform`` and
+``big_budget > 0``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from s3gaussian_tpu_torch.config import (ModelHiddenParams, ModelParams,
 from s3gaussian_tpu_torch.data.cameras import write_cameras_json
 from s3gaussian_tpu_torch.data.scene import load_scene
 from s3gaussian_tpu_torch.device import configure_device
+from s3gaussian_tpu_torch.eval.video import do_evaluation
 from s3gaussian_tpu_torch.models.deformation import DeformationField
 from s3gaussian_tpu_torch.train import checkpoints as ckpt
 from s3gaussian_tpu_torch.train.trainer import (densify_schedule,
@@ -78,7 +84,7 @@ def make_deformation(hyper: ModelHiddenParams, seed: int,
                             device)
 
 
-def not_ported(args, opt: OptimizationParams,
+def not_ported(opt: OptimizationParams,
                cfg: RasterConfig) -> Optional[str]:
     """What of this run the port does not have yet, with the ROADMAP.md
     item it waits for; None if the whole run is ported."""
@@ -87,15 +93,6 @@ def not_ported(args, opt: OptimizationParams,
     if opt.batch_size > 1:
         return ("--batch_size > 1 waits for data parallelism (ROADMAP.md §1 "
                 "item 5)")
-    if args.eval_only:
-        return "--eval_only waits for the eval sweep (ROADMAP.md §1 item 3)"
-    if not args.bench_iters:
-        if not args.skip_final_eval:
-            return ("the final eval sweep waits for the eval port (ROADMAP.md "
-                    "§1 item 3); pass --skip_final_eval")
-        if max(opt.coarse_iterations, opt.iterations) >= MID_EVAL_ITER:
-            return (f"the mid-training eval at iteration {MID_EVAL_ITER} "
-                    f"waits for the eval port (ROADMAP.md §1 item 3)")
     if cfg.cull_before_deform:
         return ("cull_before_deform waits for take_compact (ROADMAP.md §1 "
                 "item 1)")
@@ -142,10 +139,11 @@ def main(argv=None, device: str = "cuda"):
     cfg = extract_group(RasterConfig, args)
     if args.configs:
         apply_config_file(args.configs, model, pipe, opt, hyper, cfg)
-    why = not_ported(args, opt, cfg)
+    why = not_ported(opt, cfg)
     if why:
         raise SystemExit(f"train_cli: not ported yet: {why}")
-    snapshots = model.render_process and not args.bench_iters
+    snapshots = (model.render_process and not args.bench_iters
+                 and not args.eval_only)
     if snapshots and importlib.util.find_spec("PIL") is None:
         raise SystemExit("train_cli: the training snapshots (render_process) "
                          "need Pillow, which is not installed")
@@ -192,6 +190,33 @@ def main(argv=None, device: str = "cuda"):
             args.start_checkpoint, state)
         print(f"resumed from {args.start_checkpoint} at "
               f"{start_stage}:{start_iter}")
+    elif args.eval_only:
+        # --eval_only without an explicit checkpoint evaluates the model
+        # trained in model_path (the reference restores before its sweep,
+        # train.py:630-641), never the fresh init
+        found = ckpt.find_checkpoint(model.model_path)
+        if found is None:
+            raise SystemExit(
+                f"--eval_only: no checkpoint under {model.model_path} "
+                "(train first, or pass --start_checkpoint)")
+        state, start_stage, start_iter = ckpt.load_checkpoint(found[0],
+                                                              state)
+        print(f"--eval_only: restored {found[0]} ({start_stage}:"
+              f"{start_iter})")
+
+    def evaluate(stage, step, st):
+        eval_dir = os.path.join(model.model_path, "eval")
+        os.makedirs(eval_dir, exist_ok=True)
+        return do_evaluation(
+            scene.get_train_cameras(), scene.get_test_cameras(),
+            scene.get_full_cameras(), st.pool, st.deform, pipe, bg, st.aabb,
+            model.sh_degree, stage, cfg, eval_dir, step=step)
+
+    if args.eval_only:
+        res = evaluate(start_stage if start_iter else "fine",
+                       int(state.step), state)
+        print(json.dumps(res, indent=2))
+        return state
     logger_path = os.path.join(model.model_path, "logger.json")
 
     def log(entry):
@@ -297,6 +322,12 @@ def main(argv=None, device: str = "cuda"):
                 ckpt.save_checkpoint(model.model_path, stage, iteration,
                                      state)
 
+            # mid-training evaluation (reference train.py:533-551)
+            if iteration == MID_EVAL_ITER and not args.bench_iters:
+                print(f"[ITER {iteration}] mid-training evaluation")
+                print(json.dumps(evaluate(stage, iteration, state),
+                                 indent=2))
+
             if args.bench_iters and n_done >= args.bench_iters:
                 break
             iteration += 1
@@ -319,6 +350,10 @@ def main(argv=None, device: str = "cuda"):
     ckpt.save_ply_pool(os.path.join(
         model.model_path, "point_cloud", f"iteration_{opt.iterations}",
         "point_cloud.ply"), state.pool)
+
+    if not args.bench_iters and not args.skip_final_eval:
+        print(json.dumps(evaluate("fine", int(state.step), state),
+                         indent=2))
     return state
 
 

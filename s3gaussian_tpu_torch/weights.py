@@ -5,7 +5,7 @@ weights (``jax.tree_util.tree_map(np.asarray, ...)`` on the JAX side).
 
 from __future__ import annotations
 
-from typing import Any, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -140,3 +140,13 @@ def train_state_from_numpy(tree: Any, hp: ModelHiddenParams,
     return TrainState(pool=pool, deform=field, adam=adam, stats=stats,
                       step=t(tree.step, torch.int32), aabb=t(tree.aabb),
                       nan_skips=t(tree.nan_skips, torch.int32))
+
+
+def lpips_weights_from_numpy(d: Mapping[str, np.ndarray],
+                             device: torch.device | str = "cuda"
+                             ) -> Dict[str, torch.Tensor]:
+    """LPIPS weights from the arrays of an ``.npz`` that the JAX package's
+    ``eval/lpips_jax.py`` reads (``net.slice{k}.{i}.weight|bias`` of the
+    feature stack, ``lin{j}.weight`` of the heads), as float32 tensors."""
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+            for k, v in d.items()}

@@ -11,6 +11,12 @@ it the split noise differs (``jax.random`` against a ``torch.Generator``).
 The logger keys, ``cameras.json`` and the ``cfg_args`` fields match; the
 port resumes from its own checkpoint, transplants a prior field across
 pool capacities, and refuses at startup every run it cannot finish.
+
+A second port run, with no eval flag, ``--stride 2`` and the mid-training
+sweep moved to fine step 3, ends in the evaluation sweep (metrics JSONs
+and frames of the test, train and full splits); ``--eval_only`` then
+restores its checkpoint and reproduces the final sweep's metrics, and on
+a model path without a checkpoint refuses.
 """
 
 import ast
@@ -39,6 +45,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 TINY = os.path.join(HERE, "tiny_config.py")
+LPIPS_FIXTURE = os.path.join(HERE, "fixtures", "lpips_alex_fixture.npz")
 SEED = 6666
 FIRST_DENSIFY = 4
 # test_cli_e2e.py's argv without --max_pairs_per_tile, a field the port
@@ -206,9 +213,6 @@ def test_prior_checkpoint_transplants_across_capacities(runs, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--multicam", "3"], "item 4"),
     (["--batch_size", "2"], "item 5"),
-    (["--eval_only"], "item 3"),
-    ([], "item 3"),                                   # the final eval sweep
-    (["--skip_final_eval", "--iterations", "30000"], "item 3"),
     (["--skip_final_eval", "--bench_iters", "5", "--cull_before_deform"],
      "item 1"),
     (["--skip_final_eval", "--bench_iters", "5", "--big_budget", "64"],
@@ -221,3 +225,113 @@ def test_unported_runs_are_refused_at_startup(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md §1 {item}"):
         train_cli.main(argv, device="cpu")
     assert not os.path.exists(tmp_path / "out")
+
+
+# the eval run: no eval flag, a test split (--stride 2: frame 2 of 3),
+# a small pool (the default capacity, 2^16 rows, makes every sweep
+# render cost what a train step costs) and the mid-training sweep moved
+# from iteration 30000 to fine step 3
+MID = 3
+EVAL_ARGV = ["--num_pts", "500", "--pool_capacity", "4096", "--stride", "2",
+             "--coarse_iterations", "2", "--iterations", "4",
+             "--densification_interval", "100",
+             "--checkpoint_iterations", "99"] + ARGV[ARGV.index(
+                 "--max_visible"):]
+METRICS = {"psnr", "ssim", "masked_psnr", "masked_ssim", "lpips"}
+FRAMES = {"rgbs", "gt_rgbs", "depths", "dynamic_rgbs", "static_rgbs",
+          "forward_flows", "backward_flows"}
+
+
+@pytest.fixture(scope="module")
+def eval_run(tmp_path_factory):
+    """The port's CLI with its eval sweeps, then ``--eval_only`` on its
+    model path: (clip, out, final state, [(step, stage, results)] of each
+    sweep, how many sweeps the training run made)."""
+    root = tmp_path_factory.mktemp("cli_eval")
+    src = make_fixture(str(root / "clip"), n_frames=3)
+    out = str(root / "out")
+    sweeps = []
+    orig = train_cli.do_evaluation
+
+    def recording(*a, **k):
+        res = orig(*a, **k)
+        sweeps.append((k["step"], a[9], res))
+        return res
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("S3G_LPIPS_WEIGHTS", LPIPS_FIXTURE)
+        mp.setattr(train_cli, "MID_EVAL_ITER", MID)
+        mp.setattr(train_cli, "do_evaluation", recording)
+        state = train_cli.main(["-s", src, "--model_path", out] + EVAL_ARGV,
+                               device="cpu")
+        n_train = len(sweeps)
+        train_cli.main(["-s", src, "--model_path", out, "--eval_only"]
+                       + EVAL_ARGV, device="cpu")
+    return src, out, state, sweeps, n_train
+
+
+def read_metrics(out, step):
+    d = os.path.join(out, "eval", "metrics")
+    found = {}
+    for name in sorted(os.listdir(d)):
+        parts = name.split("_")
+        if parts[0] == str(step):
+            with open(os.path.join(d, name)) as f:
+                found[parts[2]] = json.load(f)
+    return found
+
+
+def test_a_default_run_ends_with_the_eval_sweep(eval_run):
+    _, out, state, sweeps, n_train = eval_run
+    step = int(state.step)
+    assert sweeps[n_train - 1][:2] == (step, "fine") and step > MID
+    found = read_metrics(out, step)
+    assert found.keys() == {"test", "train", "full"}
+    for split, m in found.items():
+        assert m.keys() == METRICS, split
+        assert np.isfinite(m["psnr"]) and np.isfinite(m["ssim"])
+        assert isinstance(m["lpips"], float)
+        assert isinstance(m["masked_psnr"], float)
+    files = os.listdir(os.path.join(out, "eval", f"full_set_{step}"))
+    # 3 timestamps of the 3-camera rig, one PNG each (no mp4 backend)
+    assert sorted(files) == sorted(f"{k}_{i:03d}.png" for k in FRAMES
+                                   for i in range(3))
+
+
+def test_the_mid_training_sweep_runs_at_mid_eval_iter(eval_run):
+    _, out, _, sweeps, n_train = eval_run
+    assert n_train == 2 and sweeps[0][:2] == (MID, "fine")
+    assert read_metrics(out, MID).keys() == {"test", "train", "full"}
+    assert os.path.isdir(os.path.join(out, "eval", f"train_set_{MID}"))
+
+
+def test_stride_2_gives_a_test_split(eval_run):
+    _, out, state, sweeps, n_train = eval_run
+    assert sweeps[n_train - 1][2].keys() == {"test", "train", "full"}
+    test_dir = os.path.join(out, "eval", f"test_set_{int(state.step)}")
+    # one rig (frame 2): one timestamp, three cameras side by side, and
+    # no flow renders (a split of one rig has no other frame)
+    assert sorted(os.listdir(test_dir)) == sorted(
+        f"{k}_000.png" for k in FRAMES - {"forward_flows", "backward_flows"})
+    with open(os.path.join(test_dir, "rgbs_000.png"), "rb") as f:
+        from s3gaussian_tpu_torch.data.images import decode_png
+        assert decode_png(f.read()).shape == (64, 3 * 96, 3)
+
+
+def test_eval_only_reproduces_the_final_sweep(eval_run):
+    _, _, state, sweeps, n_train = eval_run
+    assert len(sweeps) == n_train + 1
+    (step, stage, want), (step2, stage2, got) = sweeps[n_train - 1:]
+    assert (step2, stage2) == (step, stage) == (int(state.step), "fine")
+    assert got.keys() == want.keys()
+    for split in want:
+        for k, v in want[split].items():
+            np.testing.assert_allclose(got[split][k], v, rtol=0, atol=1e-6,
+                                       err_msg=f"{split} {k}")
+
+
+def test_eval_only_refuses_without_a_checkpoint(eval_run, tmp_path):
+    src = eval_run[0]
+    with pytest.raises(SystemExit, match="no checkpoint"):
+        train_cli.main(["-s", src, "--model_path", str(tmp_path / "fresh"),
+                        "--eval_only"] + EVAL_ARGV, device="cpu")

@@ -168,6 +168,7 @@ def _entry_points():
             "pool_from_numpy": weights.pool_from_numpy,
             "deformation_from_numpy": weights.deformation_from_numpy,
             "train_state_from_numpy": weights.train_state_from_numpy,
+            "lpips_weights_from_numpy": weights.lpips_weights_from_numpy,
             "read_waymo": waymo.read_waymo,
             "read_colmap_scene": colmap.read_colmap_scene,
             "read_blender_scene": blender.read_blender_scene,

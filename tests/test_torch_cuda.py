@@ -407,3 +407,135 @@ def test_cuda_densify_step_draws_its_noise_on_the_card(cuda_device):
                 for g in rows}
     assert_density_close((new.pool, got_rows, new.stats, info), want)
     assert int(new.step) == 40 and int(new.adam.count) == 3
+
+
+# --- the evaluation sweep's metrics and rig render on the card -----------
+
+@pytest.fixture
+def tf32_on():
+    """TF32 switched on globally, as a caller that never ran
+    ``configure_device`` may leave it; restored afterwards."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+def near_pair(seed, h=120, w=200):
+    rng = np.random.default_rng(seed)
+    gt = rng.random((h, w, 3)).astype(np.float32)
+    pred = np.clip(gt + rng.normal(0, 2e-3, gt.shape), 0, 1).astype(
+        np.float32)
+    mask = rng.random((h, w)) < 0.3
+    return pred, gt, mask
+
+
+def rand_alex_weights(rng):
+    """AlexNet's feature stack at its real widths (64, 192, 384, 256, 256),
+    random, in the naming of the LPIPS ``.npz``."""
+    wts, in_ch = {}, 3
+    for j, (name, out, k) in enumerate((("net.slice1.0", 64, 11),
+                                        ("net.slice2.3", 192, 5),
+                                        ("net.slice3.6", 384, 3),
+                                        ("net.slice4.8", 256, 3),
+                                        ("net.slice5.10", 256, 3))):
+        wts[f"{name}.weight"] = rng.normal(
+            0, 1 / np.sqrt(in_ch * k * k), (out, in_ch, k, k)).astype(
+                np.float32)
+        wts[f"{name}.bias"] = rng.normal(0, 0.01, out).astype(np.float32)
+        wts[f"lin{j}.weight"] = np.abs(rng.normal(
+            0, 0.1, (1, out, 1, 1))).astype(np.float32)
+        in_ch = out
+    return wts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_ssim_is_exact_with_tf32_on(cuda_device, tf32_on, seed):
+    """SSIM and masked SSIM of a near-identical pair (the variances cancel)
+    from float32 inputs on the card against float64 inputs on the CPU."""
+    from s3gaussian_tpu_torch.eval.metrics import masked_ssim, ssim_skimage
+
+    pred, gt, mask = near_pair(seed)
+    on = [torch.tensor(x, device=cuda_device) for x in (pred, gt, mask)]
+    ref = [torch.tensor(x).double() if x.dtype != bool else torch.tensor(x)
+           for x in (pred, gt, mask)]
+    np.testing.assert_allclose(float(ssim_skimage(*on[:2])),
+                               float(ssim_skimage(*ref[:2])), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(masked_ssim(*on)),
+                               float(masked_ssim(*ref)), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_lpips_is_exact_with_tf32_on(cuda_device, tf32_on, tmp_path,
+                                          monkeypatch):
+    """LPIPS with AlexNet-width random weights on the card against the
+    CPU in float32, and the TF32 flag as it was afterwards."""
+    from s3gaussian_tpu_torch.eval.lpips import lpips
+
+    path = tmp_path / "alex.npz"
+    np.savez(path, **rand_alex_weights(np.random.default_rng(0)))
+    monkeypatch.setenv("S3G_LPIPS_WEIGHTS", str(path))
+    pred, gt, _ = near_pair(2, 128, 192)
+    pred = np.clip(pred + np.random.default_rng(3).normal(
+        0, 0.05, pred.shape), 0, 1).astype(np.float32)
+    got = lpips(torch.tensor(pred, device=cuda_device),
+                torch.tensor(gt, device=cuda_device))
+    want = lpips(torch.tensor(pred), torch.tensor(gt))
+    assert torch.backends.cudnn.allow_tf32
+    assert float(want) > 0
+    np.testing.assert_allclose(float(got), float(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_render_multicam_equals_per_camera_renders(cuda_device):
+    """The rig render on the card (one deformation evaluation, the CUDA
+    compositor) against render() per camera, with the decomposition."""
+    from s3gaussian_tpu_torch.config import ModelHiddenParams, PipelineParams
+    from s3gaussian_tpu_torch.data.cameras import make_camera
+    from s3gaussian_tpu_torch.models.deformation import DeformationField
+    from s3gaussian_tpu_torch.models.pool import create_from_pcd
+    from s3gaussian_tpu_torch.render.renderer import render, render_multicam
+
+    rng = np.random.default_rng(4)
+    n = 2000
+    tan = math.tan(0.5)
+    z = rng.uniform(1.5, 8.0, n)
+    pts = np.stack([rng.uniform(-0.9, 0.9, n) * tan * z,
+                    rng.uniform(-0.9, 0.9, n) * tan * z, z], 1)
+    pool = create_from_pcd(pts.astype(np.float32),
+                           rng.random((n, 3)).astype(np.float32), 2048,
+                           device=cuda_device)
+    hp = ModelHiddenParams(net_width=16, multires=[1, 2],
+                           kplanes_config={"grid_dimensions": 2,
+                                           "input_coordinate_dim": 4,
+                                           "output_coordinate_dim": 8,
+                                           "resolution": [8, 8, 8, 5]})
+    deform = DeformationField(hp, torch.Generator().manual_seed(0),
+                              cuda_device)
+    cams = []
+    for yaw in (-20.0, 0.0, 20.0):
+        a = np.deg2rad(yaw)
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        cams.append(make_camera(R, np.array([0.2, -0.1, 0.3]), 1.0, 0.8, W,
+                                H, time=0.6, device=cuda_device))
+    cfg = RasterConfig(max_visible=2048, pair_budget=1 << 18)
+    args = (pool, deform, PipelineParams(), torch.zeros(3, device=cuda_device),
+            torch.tensor([[6.0, 6.0, 9.0], [-6.0, -6.0, 0.0]],
+                         device=cuda_device), 3)
+    before = tk.launches
+    with torch.no_grad():
+        rig = render_multicam(cams, *args, return_decomposition=True, cfg=cfg)
+        assert tk.launches - before == 9
+        for b, cam in enumerate(cams):
+            one = render(cam, *args, return_decomposition=True, cfg=cfg)
+            for k in ("render", "depth", "render_d", "render_s"):
+                np.testing.assert_allclose(rig[k][b].cpu().numpy(),
+                                           one[k].cpu().numpy(), rtol=1e-4,
+                                           atol=5e-4, err_msg=k)
+    assert int(rig["raster_aux"]["n_pairs"]) > 0

@@ -25,6 +25,8 @@ def test_every_port_module_imports_without_jax():
     mods = port_modules()
     assert "s3gaussian_tpu_torch.ops.tile_kernels" in mods
     assert "s3gaussian_tpu_torch.train.trainer" in mods
+    for m in ("metrics", "lpips", "flow", "video", "visualization"):
+        assert f"s3gaussian_tpu_torch.eval.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"       # any `import jax` raises
             "sys.modules['s3gaussian_tpu'] = None\n"

@@ -172,17 +172,23 @@ def test_render_pixels_frames(scene):
     pipe = PipelineParams()
     bg = torch.zeros(3)
     aabb = torch.from_numpy(AABB)
+    # no ground truth on these cameras: frames only
     frames = render_pixels(cams, tpool, tdeform, pipe, bg, aabb, 3, "fine",
-                           CFG, return_decomposition=True)
+                           CFG, compute_metrics=False,
+                           return_decomposition=True)
     assert sorted(frames) == ["depths", "dynamic_rgbs", "rgbs", "static_rgbs"]
     for cam, rgb, depth in zip(cams, frames["rgbs"], frames["depths"]):
-        pkg = t_render(cam, tpool, tdeform, pipe, bg, aabb, 3, cfg=CFG)
+        with torch.no_grad():
+            pkg = t_render(cam, tpool, tdeform, pipe, bg, aabb, 3, cfg=CFG)
         assert rgb.shape == (H, W, 3) and depth.shape == (H, W)
-        torch.testing.assert_close(
-            rgb, torch.clamp(pkg["render"], 0, 1).permute(1, 2, 0),
-            rtol=0, atol=0)
+        # frames leave the device as uint8, as the JAX sweep's do
+        want = torch.round(torch.clamp(pkg["render"], 0, 1).permute(1, 2, 0)
+                           * 255).numpy() / 255
+        np.testing.assert_allclose(rgb, want, rtol=0, atol=1e-7)
+        np.testing.assert_array_equal(depth, pkg["depth"].numpy())
     plain = render_pixels(cams, tpool, tdeform, pipe, bg, aabb, 3, "fine",
-                          CFG, return_decomposition=False)
+                          CFG, compute_metrics=False,
+                          return_decomposition=False)
     assert sorted(plain) == ["depths", "rgbs"]
 
 
