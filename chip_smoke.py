@@ -30,11 +30,24 @@ last line):
      2 coarse and 5 fine ``train_step``s against bench.py's random RGB and
      LiDAR-depth targets, launch counts checked; per-step times, a
      forward / backward / optimizer split and peak device memory;
+  5b. the rig step (bench.py's ``detail_multicam3``): the headline scene
+     trained a rig of 3 cameras (yaw -40/0/+40, one time) a step through
+     ``train_step_multicam``, one forward and one backward launch a
+     camera; ms a step (median of 5), cameras/s beside the single-camera
+     step's, the forward / backward / optimizer split, peak memory;
   6. a small scene on the GPU and on the CPU (plain compositors): renders
      and one fine train step from the same state, which must agree, every
      pixel of the renders within tolerance; the renders again with the
      field phase 5 trained, where a pixel may differ only through a pair
-     on a skip or exit threshold, which is shown;
+     on a skip or exit threshold, which is shown; then (6b) a rig step
+     with the union cull and two-class emission from one mid-training
+     state, held to the same train-step tolerances;
+  6c. the Waymo rig at full width (bench.py's ``detail_waymo_rig``): the
+     street360 cloud of 1.5 M points in a 1,507,328 pool, 3 cameras
+     yawed 40 degrees apart, the union cull to 589,824 rows, two-class
+     emission (``big_budget`` 131,072), pair budget 2^23; a few rig
+     steps: ms a step, cameras/s, peak memory, n_pairs, the working set,
+     the overflow counters (pairs and visible gated at 0);
   7. the training CLI, the main path: a synthetic Waymo-layout clip (10
      frames x 3 cameras at 640x960, ground truth rendered from a known
      street scene of ~344k Gaussians with the port's rasterizer, 60,000
@@ -59,11 +72,19 @@ last line):
   8. ``--eval_only`` on phase 7's model path: it restores the final fine
      checkpoint, its sweep holds phase 7's gates and reproduces its
      per-view metrics within 1e-6; on a fresh model path it refuses
-     ("no checkpoint").
+     ("no checkpoint");
+  9. the ``arguments/waymo_perf.py`` preset through ``train_cli.main``
+     on phase 7's clip with its cadence (40 coarse + 80 fine rig steps
+     of 3 cameras, the cull, the auto-sized ``max_visible``) and its
+     final eval sweep: phase 7's gates with 3 forward and 3 backward
+     launches a rig step, the printed budget and ``check_sweep``'s
+     gates; it/s and cameras/s per stage.
 
-Then one JSON line with both kernels (launches counted over phases 7-8),
-the card line, and last ``{"ok": true, "device": {...}}``.  The port
-imports no jax; neither does this script.
+Then the compositor launches of every phase that drives the port's
+paths (4, 5, 5b, 6c, 7, 8, 9; not the comparisons of 3, 6 and 6b), one
+JSON line with both kernels (their launches summed over those phases),
+the script's wall time, the card line, and last ``{"ok": true,
+"device": {...}}``.  The port imports no jax; neither does this script.
 """
 
 from __future__ import annotations
@@ -71,6 +92,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
@@ -161,6 +183,18 @@ LPIPS_FIXTURE = os.path.join(REPO, "tests", "fixtures",
 # the CLI's device memory after a step may not grow across the fine stage
 # by more than this share (densify replaces tensors, never adds rows)
 ALLOC_GROWTH = 0.05
+
+# phase 5b: bench.py's detail_multicam3 rig on the headline scene (its
+# 3 cameras yawed as the Waymo rig's), steps after warm-up, timed
+RIG_WARMUP, RIG_STEPS = 2, 5
+# phase 6c: bench.py's detail_waymo_rig, the street360 cloud at the
+# reference's 1.5 M LiDAR cap, the forward rig culled by its union
+WAYMO_N, WAYMO_CAP, WAYMO_MAX_VISIBLE = 1_500_000, 1_507_328, 589_824
+WAYMO_BIG_BUDGET, WAYMO_PAIR_BUDGET = 131_072, 1 << 23
+WAYMO_WARMUP, WAYMO_STEPS = 1, 3
+# phase 9: arguments/waymo_perf.py on phase 7's clip, depth cut further
+# (rig steps of 3 cameras), phase 7's cadence
+PERF_COARSE, PERF_FINE = 40, 80
 
 
 class SmokeFailure(Exception):
@@ -721,7 +755,8 @@ def cli_hooks(torch, rec):
     from s3gaussian_tpu_torch.train import checkpoints as ckpt
 
     targets = {(train_cli, "load_scene"), (train_cli, "densify_step"),
-               (train_cli, "train_step"), (train_cli, "do_evaluation"),
+               (train_cli, "train_step"), (train_cli, "train_step_multicam"),
+               (train_cli, "do_evaluation"),
                (ckpt, "save_checkpoint"), (video, "render_pixels"),
                (video, "render_multicam"), (video, "render"),
                (video, "save_videos")}
@@ -743,10 +778,12 @@ def cli_hooks(torch, rec):
         rec["densify_ms"].append(ev[0].elapsed_time(ev[1]))
         return res
 
-    def train_step(state, cam, stage, *a, **k):
-        res = orig["train_step"](state, cam, stage, *a, **k)
-        rec["alloc"].append((stage, torch.cuda.memory_allocated()))
-        return res
+    def counted_step(name):
+        def step(state, cam, stage, *a, **k):
+            res = orig[name](state, cam, stage, *a, **k)
+            rec["alloc"].append((stage, torch.cuda.memory_allocated()))
+            return res
+        return step
 
     def save_checkpoint(*a, **k):
         t = time.perf_counter()
@@ -809,7 +846,9 @@ def cli_hooks(torch, rec):
         rec["video_s"].append(time.perf_counter() - t)
 
     hooks = {"load_scene": load_scene, "densify_step": densify_step,
-             "train_step": train_step, "save_checkpoint": save_checkpoint,
+             "train_step": counted_step("train_step"),
+             "train_step_multicam": counted_step("train_step_multicam"),
+             "save_checkpoint": save_checkpoint,
              "do_evaluation": do_evaluation, "render_pixels": render_pixels,
              "render_multicam": timed_render(orig["render_multicam"],
                                              rec["rig_s"]),
@@ -1176,6 +1215,382 @@ def cli_phase(torch, dev, card):
     return state, argv, out, rec, sweep
 
 
+def compare_step(torch, start, s_gpu, s_cpu, aux_g, aux_c, what):
+    """One train step's result on the card against the CPU's from the same
+    state: the loss rtol STEP_LOSS_RTOL; each tensor's update atol
+    STEP_ATOL_SCALE·max|update| rtol STEP_RTOL; denom and max_radii2d
+    equal but for 0.1% of the rows; xyz_grad_accum atol
+    STEP_ATOL_SCALE·max.  Returns (GPU loss, CPU loss, worst update error
+    over its tensor's largest update, xyz_grad_accum max abs error)."""
+    lg, lc = aux_g["metrics"]["loss"].item(), aux_c["metrics"]["loss"].item()
+    check(abs(lg - lc) <= STEP_LOSS_RTOL * abs(lc),
+          f"{what} loss GPU {lg} vs CPU {lc}")
+    got, want = snapshot(torch, s_gpu), snapshot(torch, s_cpu)
+    worst_step = 0.0
+    for key, w0 in start.items():
+        dg = (got[key].cpu() - w0).double()
+        dc = (want[key] - w0).double()
+        scale = max(float(dc.abs().max()), 1e-30)
+        err = (dg - dc).abs()
+        bad = err > STEP_ATOL_SCALE * scale + STEP_RTOL * dc.abs()
+        check(not bool(bad.any()),
+              f"{what} {key}: update differs at {int(bad.sum())} "
+              f"of {bad.numel()} entries, max {float(err.max()):.3e} vs "
+              f"scale {scale:.3e}")
+        worst_step = max(worst_step, float(err.max()) / scale)
+    for f in ("denom", "max_radii2d"):
+        a, b = getattr(s_gpu.stats, f).cpu(), getattr(s_cpu.stats, f)
+        n_diff = int((a != b).sum())
+        check(n_diff <= max(1, a.numel() // 1000),
+              f"{what} {f}: {n_diff} rows differ")
+    acc_g, acc_c = s_gpu.stats.xyz_grad_accum.cpu(), s_cpu.stats.xyz_grad_accum
+    acc_err = float((acc_g - acc_c).abs().max())
+    check(acc_err <= STEP_ATOL_SCALE * float(acc_c.abs().max()),
+          f"{what} xyz_grad_accum differs by {acc_err:.3e}")
+    return lg, lc, worst_step, acc_err
+
+
+def mid_training(torch, state, seed):
+    """``state`` with random mid-training Adam moments (count 5), in
+    place."""
+    mrng = np.random.default_rng(seed)
+    for tree_, sc in ((state.adam.mu, 1e-3), (state.adam.nu, 1e-6)):
+        for d in tree_.values():
+            for v in d.values():
+                x = mrng.normal(size=tuple(v.shape)) * sc
+                v.copy_(torch.from_numpy(np.abs(x) if sc < 1e-4 else x))
+    state.adam.count.fill_(5)
+    return state
+
+
+def small_rig_step(torch, dev, hp, opt, pipe, bg, card):
+    """Phase 6b: one rig step (3 cameras yawed -40/0/+40 at one time,
+    96x160) on a small street360 cloud with the union cull (a budget below
+    the pool) and two-class emission, on the card and on the CPU (plain
+    compositors) from one mid-training state, held to phase 6's
+    train-step tolerances; the expanded visibility and vis_count equal but
+    for 0.1% of the rows."""
+    from s3gaussian_tpu_torch.config import RasterConfig
+    from s3gaussian_tpu_torch.models.deformation import DeformationField
+    from s3gaussian_tpu_torch.models.pool import create_from_pcd
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    pts, cols, rng = street360(4000, seed=5)
+    pts[:, [0, 2]] *= 0.25                 # radius 0.5-15: near bigs
+    cfg = RasterConfig(max_visible=3072, pair_budget=1 << 18, big_budget=256,
+                       cull_before_deform=True)
+    s_cpu = mid_training(torch, tr.init_state(
+        create_from_pcd(pts, cols, 4096, device="cpu"),
+        DeformationField(hp, torch.Generator().manual_seed(1), "cpu"),
+        torch.tensor([[20.0, 20.0, 20.0], [-20.0, -20.0, -5.0]])), 4)
+    s_gpu = state_to(torch, s_cpu, dev)
+    start = snapshot(torch, s_cpu)
+    imgs = rng.random((3, 96, 160, 3)).astype(np.float32)
+    dmaps = rng.uniform(1, 15, (3, 96, 160)).astype(np.float32)
+    res = []
+    for d, st, b in ((dev, s_gpu, bg), ("cpu", s_cpu, bg.cpu())):
+        cams = [rig_camera(torch, d, yaw, 0.5, 96, 160, imgs[i], dmaps[i])
+                for i, yaw in enumerate(YAWS_DEG)]
+        l0 = (tk.launches, tk.bwd_launches)
+        res.append(tr.train_step_multicam(st, cams, "fine", 3, hp, opt, pipe,
+                                          cfg, SPATIAL_LR_SCALE, b))
+        got = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+        want = (0, 0) if str(d) == "cpu" else (3, 3)
+        check(got == want, f"small rig step on {d}: {got} launches")
+    (s_gpu, aux_g), (s_cpu, aux_c) = res
+    lg, lc, worst, acc_err = compare_step(torch, start, s_gpu, s_cpu, aux_g,
+                                          aux_c, "small rig step")
+    for k in ("visible", "vis_count"):
+        n_diff = int((aux_g[k].cpu() != aux_c[k]).sum())
+        check(n_diff <= max(1, aux_c[k].numel() // 1000),
+              f"small rig step {k}: {n_diff} rows differ")
+    n_vis = int(aux_c["visible"].sum())
+    check(0 < n_vis < int(s_cpu.pool.alive.sum()),
+          f"small rig step: {n_vis} visible rows, the cull left none out")
+    print(f"reference: small rig step (cull, max_visible 3072 of 4000, "
+          f"big_budget 256) GPU vs CPU: loss {lg:.6f} vs {lc:.6f}, worst "
+          f"update error {worst:.3e} of its tensor's largest update, "
+          f"xyz_grad_accum max abs err {acc_err:.3e}; {n_vis} visible, "
+          f"rect-clamped {int(aux_c['overflow_rect'])} (demoted bigs "
+          f"included), n_pairs {int(aux_c['n_pairs'])}", flush=True)
+
+
+def timed_rig_steps(torch, state, rigs, su, cfg, n_warmup, what):
+    """Rig steps of ``train_step_multicam`` over ``rigs`` (lists of
+    same-time cameras) with its gates: a finite loss, no pair or visible
+    overflow, one forward and one backward launch a camera.  Returns the
+    state, the last aux and the CUDA-event ms of the steps after the
+    first ``n_warmup``."""
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    ms = []
+    for i, cams in enumerate(rigs):
+        l0 = (tk.launches, tk.bwd_launches)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, aux = tr.train_step_multicam(state, cams, "fine", 3, su.hp,
+                                            su.opt, su.pipe, cfg,
+                                            SPATIAL_LR_SCALE, su.bg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if i >= n_warmup:
+            ms.append(ev[0].elapsed_time(ev[1]))
+        loss = aux["metrics"]["loss"].item()
+        check(math.isfinite(loss), f"{what} step {i}: loss {loss}")
+        for k in ("overflow_pairs", "overflow_visible"):
+            check(int(aux[k]) == 0, f"{what} step {i}: {k} {int(aux[k])}")
+        got = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+        check(got == (len(cams),) * 2, f"{what} step {i}: {got} forward/"
+              f"backward launches for {len(cams)} cameras")
+    check(int(state.nan_skips) == 0, f"{what}: nan_skips "
+          f"{int(state.nan_skips)}")
+    return state, aux, ms
+
+
+def rig_split(torch, state, rigs, su, cfg):
+    """Median forward / backward / optimizer ms of rig steps (CUDA
+    events)."""
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for cams in rigs:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, aux, tree, tap = tr.step_forward(state, cams, "fine", 3, su.hp,
+                                               su.opt, su.pipe, cfg, su.bg)
+        ev[1].record()
+        grads, tap_grad = tr.step_gradients(loss, tree, tap)
+        ev[2].record()
+        state = tr.rig_update(state, grads, tap_grad, loss.detach(), aux,
+                              len(cams), su.opt, SPATIAL_LR_SCALE)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(parts):
+            parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+        del loss, aux, tree, tap, grads, tap_grad
+    return state, {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def rig_step_phase(torch, su, state, card, single_ms):
+    """Phase 5b: bench.py's detail_multicam3 workload, the headline scene
+    trained a rig of 3 cameras (yaw -40/0/+40 degrees, one time) a step
+    from phase 5's state.  Returns the state and the compositor launches
+    of its timed steps."""
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+
+    dev = su.bg.device
+    rigs = [[rig_camera(torch, dev, yaw, 0.4 + 1e-4 * i, H, W, su.gt,
+                        su.gt_depth) for yaw in YAWS_DEG]
+            for i in range(RIG_WARMUP + RIG_STEPS + SPLIT_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    l0 = (tk.launches, tk.bwd_launches)
+    state, aux, ms = timed_rig_steps(torch, state,
+                                     rigs[:RIG_WARMUP + RIG_STEPS], su,
+                                     su.cfg, RIG_WARMUP, "rig step")
+    launches = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    state, split = rig_split(torch, state, rigs[RIG_WARMUP + RIG_STEPS:], su,
+                             su.cfg)
+    med = float(np.median(ms))
+    print(f"rig step (bench.py's detail_multicam3: {N_GAUSSIANS} in "
+          f"{CAPACITY}, 3 cameras yawed {YAWS_DEG} at one time, pair budget "
+          f"2^22, big_budget 0): ms (CUDA events, {RIG_STEPS} after "
+          f"{RIG_WARMUP} warm-up) " + " ".join(f"{x:.2f}" for x in ms)
+          + f" | median {med:.2f}; {3e3 / med:.3f} cameras/s against "
+          f"{1e3 / single_ms:.3f} for the single-camera step (median "
+          f"{single_ms:.2f} ms); split (median of {SPLIT_STEPS}) "
+          + " ".join(f"{k}={v:.3f}" for k, v in split.items())
+          + f" ms; n_pairs {int(aux['n_pairs'])} over the rig, visible "
+          f"{int(aux['visible'].sum())}, rect-clamped "
+          f"{int(aux['overflow_rect'])}; peak device memory {peak_gib:.2f} "
+          f"GiB; {launches[0]} forward / {launches[1]} backward launches "
+          f"({card})", flush=True)
+    return state, launches
+
+
+def street360(n, seed=0):
+    """bench.py's street360 cloud: ``n`` LiDAR-like points around the ego
+    (radius 2-60, height -1.5-6 in the camera frame), their colours, and
+    the generator as bench.py leaves it before drawing its targets."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    rad = rng.uniform(2.0, 60.0, n)
+    y = rng.uniform(-1.5, 6.0, n)
+    pts = np.stack([rad * np.sin(ang), y, rad * np.cos(ang)],
+                   1).astype(np.float32)
+    return pts, rng.random((n, 3)).astype(np.float32), rng
+
+
+def waymo_rig_phase(torch, dev, card):
+    """Phase 6c: bench.py's detail_waymo_rig at full width: the street360
+    cloud of 1.5 M points in a 1,507,328 pool, the default field, the
+    3-camera forward rig yawed 40 degrees apart, the union cull with
+    max_visible 589,824, two-class emission with big_budget 131,072, pair
+    budget 2^23; a few rig steps.  Returns the compositor launches of its
+    steps."""
+    from s3gaussian_tpu_torch.config import (ModelHiddenParams,
+                                             OptimizationParams,
+                                             PipelineParams, RasterConfig)
+    from s3gaussian_tpu_torch.models.deformation import DeformationField
+    from s3gaussian_tpu_torch.models.pool import create_from_pcd
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.render.renderer import cull_working_set
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    t0 = time.time()
+    pts, cols, rng = street360(WAYMO_N)
+    pool = create_from_pcd(pts, cols, WAYMO_CAP, device=dev)
+    gt = rng.random((H, W, 3)).astype(np.float32)
+    gt_depth = rng.uniform(1, 70, (H, W)).astype(np.float32)
+    hp = ModelHiddenParams()
+    su = types.SimpleNamespace(
+        hp=hp, opt=OptimizationParams(), pipe=PipelineParams(),
+        bg=torch.zeros(3, device=dev))
+    cfg = RasterConfig(tile_x=16, tile_y=16, max_visible=WAYMO_MAX_VISIBLE,
+                       rect_w=4, rect_h=4, pair_budget=WAYMO_PAIR_BUDGET,
+                       chunk=128, big_budget=WAYMO_BIG_BUDGET,
+                       cull_before_deform=True)
+    state = tr.init_state(
+        pool, DeformationField(hp, torch.Generator().manual_seed(0), dev),
+        torch.tensor([[80.0, 80.0, 80.0], [-80.0, -80.0, -10.0]],
+                     device=dev))
+    rigs = [[rig_camera(torch, dev, yaw, 0.4 + 1e-4 * i, H, W, gt, gt_depth)
+             for yaw in YAWS_DEG]
+            for i in range(WAYMO_WARMUP + WAYMO_STEPS + SPLIT_STEPS)]
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    with torch.no_grad():
+        work, vis0, _ = cull_working_set(state.pool, rigs[0], cfg)
+        n_union = int(vis0.sum())
+        n_work = int(work.alive.sum())
+    del work, vis0
+    torch.cuda.reset_peak_memory_stats()
+    l0 = (tk.launches, tk.bwd_launches)
+    n_timed = WAYMO_WARMUP + WAYMO_STEPS
+    try:
+        state, aux, ms = timed_rig_steps(torch, state, rigs[:n_timed], su,
+                                         cfg, WAYMO_WARMUP, "waymo rig")
+        launches = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        state, split = rig_split(torch, state, rigs[n_timed:], su, cfg)
+    except torch.cuda.OutOfMemoryError as e:
+        raise SmokeFailure(f"waymo rig: the card ran out of memory "
+                           f"(remat_deform is not ported): {e}") from e
+    med = float(np.median(ms))
+    print(f"waymo rig (bench.py's detail_waymo_rig: street360 {WAYMO_N} in "
+          f"{WAYMO_CAP}, 3 cameras yawed {YAWS_DEG}, cull, max_visible "
+          f"{WAYMO_MAX_VISIBLE}, big_budget {WAYMO_BIG_BUDGET}, pair budget "
+          f"2^23): set-up {setup_s:.2f} s; ms per rig step (CUDA events, "
+          f"{WAYMO_STEPS} after {WAYMO_WARMUP} warm-up) "
+          + " ".join(f"{x:.2f}" for x in ms)
+          + f" | median {med:.2f}, {3e3 / med:.3f} cameras/s; split "
+          f"(median of {SPLIT_STEPS}) "
+          + " ".join(f"{k}={v:.3f}" for k, v in split.items())
+          + f" ms; union cull "
+          f"{n_union} rows of {int(pool.alive.sum())}, working set {n_work} "
+          f"of {WAYMO_MAX_VISIBLE} ({max(n_union - WAYMO_MAX_VISIBLE, 0)} "
+          f"rows of the union beyond the budget, not rendered); n_pairs {int(aux['n_pairs'])} over the "
+          f"rig; overflow pairs {int(aux['overflow_pairs'])} visible "
+          f"{int(aux['overflow_visible'])} rect {int(aux['overflow_rect'])} "
+          f"(most in a camera, demoted bigs included); peak device memory "
+          f"{peak_gib:.2f} GiB; {launches[0]} forward / {launches[1]} "
+          f"backward launches ({card})", flush=True)
+    check(n_work == min(n_union, WAYMO_MAX_VISIBLE), f"waymo rig: union "
+          f"{n_union} rows, working set {n_work} of {WAYMO_MAX_VISIBLE}")
+    return launches
+
+
+def perf_cli_phase(torch, argv7, card):
+    """Phase 9: ``train_cli.main`` with ``--configs arguments/waymo_perf.py``
+    (a rig of 3 same-time cameras a step, the pre-deformation cull, the
+    auto-sized max_visible) on phase 7's clip, phase 7's cadence and
+    fewer steps, then its final eval sweep; the gates of phase 7 with 3
+    forward and 3 backward launches a rig step, and check_sweep's.
+    Returns the compositor launches of its training and of its sweep."""
+    from s3gaussian_tpu_torch import train_cli
+
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+
+    out = os.path.join(os.path.dirname(argv7[3]), "out_waymo_perf")
+    argv = (argv7[:2] + ["--model_path", out] + argv7[4:]
+            + ["--coarse_iterations", str(PERF_COARSE),
+               "--iterations", str(PERF_FINE),
+               "--configs", os.path.join(REPO, "arguments", "waymo_perf.py")])
+    print(f"waymo_perf: train_cli.main({' '.join(argv[4:])}): phase 7's "
+          f"clip and cadence, {PERF_COARSE} coarse + {PERF_FINE} fine rig "
+          f"steps of 3 cameras; the final eval sweep runs", flush=True)
+    rec = new_record()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with cli_hooks(torch, rec), contextlib.redirect_stdout(buf):
+            tk.launches = tk.bwd_launches = 0
+            state = train_cli.main(argv)
+            torch.cuda.synchronize()
+    finally:
+        printed = buf.getvalue()
+        print(printed, end="", flush=True)
+    run_s = time.time() - t0
+    check(len(rec["evals"]) == 1, f"waymo_perf: {len(rec['evals'])} sweeps")
+    sized = re.findall(r"^auto-sized max_visible = (\d+)$", printed, re.M)
+    check(len(sized) == 1 and 0 < int(sized[0]) <= CLI_CAPACITY,
+          f"waymo_perf: auto-sized max_visible lines {sized}")
+    log = read_logger(os.path.join(out, "logger.json"))
+    steps = [l for l in log if "Loss" in l]
+    for l in steps:
+        where = f"waymo_perf {l['stage']} step {l['step']}"
+        check(math.isfinite(l["Loss"]), f"{where}: Loss {l['Loss']}")
+        check(l["ovf_vis"] == l["ovf_pairs"] == 0,
+              f"{where}: overflow visible {l['ovf_vis']} pairs "
+              f"{l['ovf_pairs']}")
+        check(l["nan_skips"] == 0, f"{where}: nan_skips {l['nan_skips']}")
+    check([l["step"] for l in steps if l["stage"] == "fine"][-1] == PERF_FINE,
+          "waymo_perf: the fine stage did not reach its end")
+    dens = [l for l in log if "densify" in l]
+    check(any(d["densify"]["n_cloned"] + d["densify"]["n_split"] > 0
+              for d in dens), "waymo_perf: no densify cloned or split")
+    check(any(d["densify"]["n_pruned"] > 0 for d in dens),
+          "waymo_perf: nothing pruned")
+    coarse_psnr = [l["psnr"] for l in steps if l["stage"] == "coarse"]
+    check(coarse_psnr[-1] > coarse_psnr[0], f"waymo_perf: coarse psnr "
+          f"{coarse_psnr[0]} -> {coarse_psnr[-1]}")
+    n_steps = PERF_COARSE + PERF_FINE
+    launches = rec["train_launches"]
+    check(launches == (3 * n_steps,) * 2,
+          f"waymo_perf: {launches} forward/backward launches for {n_steps} "
+          f"rig steps of 3 cameras")
+    rates = {s: [l for l in steps if l["stage"] == s][-1]["it_per_s"]
+             for s in ("coarse", "fine")}
+    print("waymo_perf: densify " + "; ".join(
+        f"{d['stage']} {d['step']}: +{d['densify']['n_cloned']} cloned "
+        f"+{d['densify']['n_split']} split -{d['densify']['n_pruned']} "
+        f"pruned (screen {d['densify']['n_prune_screen']}) -> "
+        f"{d['densify']['n_alive']}" for d in dens), flush=True)
+    print("waymo_perf: logged step:Loss/psnr/point/ovf_rect " + " ".join(
+        f"{l['stage'][0]}{l['step']}:{l['Loss']:.4f}/{l['psnr']:.2f}"
+        f"/{l['point']}/{l['ovf_rect']}" for l in steps), flush=True)
+    print(f"waymo_perf: auto-sized max_visible {sized[0]} (the largest "
+          f"union of a frame's rig, x2); {PERF_COARSE} coarse + {PERF_FINE} "
+          f"fine rig steps and the final sweep in {run_s:.2f} s; it/s "
+          f"coarse {rates['coarse']} fine {rates['fine']}, cameras/s "
+          f"coarse {3 * rates['coarse']:.3f} fine {3 * rates['fine']:.3f}; "
+          f"coarse psnr {coarse_psnr[0]} -> {coarse_psnr[-1]} dB, fine "
+          f"{steps[-1]['psnr']} dB; {launches[0]} forward / {launches[1]} "
+          f"backward launches; training peak "
+          f"{rec['train_peak'] / 2 ** 30:.2f} GiB ({card})", flush=True)
+    _, sweep = check_sweep(torch, rec, out, int(state.step), card,
+                           "waymo_perf")
+    return launches, sweep
+
+
+T_START = time.time()
+
+
 def main() -> int:
     import torch
 
@@ -1446,6 +1861,10 @@ def main() -> int:
     print("fine step split (median of 3, CUDA events): "
           + " ".join(f"{k}={np.median(v):.3f}" for k, v in parts.items())
           + f" ms ({card})", flush=True)
+
+    # 5b. the rig step at the headline, from phase 5's state
+    state, rig_launches = rig_step_phase(torch, su, state, card,
+                                         float(np.median(fine_ms)))
     del state
 
     # 6. small scene: GPU vs CPU (plain compositors): render + train step,
@@ -1540,14 +1959,8 @@ def main() -> int:
                [(yaw, t) for yaw in YAWS_DEG for t in (0.3, 0.5, 0.7)],
                "trained field", MAX_FLIPPED_PIXELS)
 
-    s_cpu = tr.init_state(cpu_pool, cpu_deform, aabb.cpu())
-    mrng = np.random.default_rng(3)        # mid-training moments
-    for tree_, sc in ((s_cpu.adam.mu, 1e-3), (s_cpu.adam.nu, 1e-6)):
-        for d in tree_.values():
-            for v in d.values():
-                x = mrng.normal(size=tuple(v.shape)) * sc
-                v.copy_(torch.from_numpy(np.abs(x) if sc < 1e-4 else x))
-    s_cpu.adam.count.fill_(5)
+    s_cpu = mid_training(torch, tr.init_state(cpu_pool, cpu_deform,
+                                              aabb.cpu()), 3)
     s_gpu = state_to(torch, s_cpu, dev)
     start = snapshot(torch, s_cpu)
     img = srng.random((96, 160, 3)).astype(np.float32)
@@ -1558,39 +1971,26 @@ def main() -> int:
     s_cpu, aux_c = tr.train_step(
         s_cpu, rig_camera(torch, "cpu", 0.0, 0.5, 96, 160, img, dmap),
         "fine", 3, hp, opt, pipe, small_cfg, SPATIAL_LR_SCALE, bg.cpu())
-    lg, lc = aux_g["metrics"]["loss"].item(), aux_c["metrics"]["loss"].item()
-    check(abs(lg - lc) <= STEP_LOSS_RTOL * abs(lc),
-          f"small train step loss GPU {lg} vs CPU {lc}")
-    got, want = snapshot(torch, s_gpu), snapshot(torch, s_cpu)
-    worst_step = 0.0
-    for key, w0 in start.items():
-        dg = (got[key].cpu() - w0).double()
-        dc = (want[key] - w0).double()
-        scale = max(float(dc.abs().max()), 1e-30)
-        err = (dg - dc).abs()
-        bad = err > STEP_ATOL_SCALE * scale + STEP_RTOL * dc.abs()
-        check(not bool(bad.any()),
-              f"small train step {key}: update differs at {int(bad.sum())} "
-              f"of {bad.numel()} entries, max {float(err.max()):.3e} vs "
-              f"scale {scale:.3e}")
-        worst_step = max(worst_step, float(err.max()) / scale)
-    for f in ("denom", "max_radii2d"):
-        a, b = getattr(s_gpu.stats, f).cpu(), getattr(s_cpu.stats, f)
-        n_diff = int((a != b).sum())
-        check(n_diff <= max(1, a.numel() // 1000),
-              f"small train step {f}: {n_diff} rows differ")
-    acc_g, acc_c = s_gpu.stats.xyz_grad_accum.cpu(), s_cpu.stats.xyz_grad_accum
-    acc_err = float((acc_g - acc_c).abs().max())
-    check(acc_err <= STEP_ATOL_SCALE * float(acc_c.abs().max()),
-          f"small train step xyz_grad_accum differs by {acc_err:.3e}")
+    lg, lc, worst_step, acc_err = compare_step(torch, start, s_gpu, s_cpu,
+                                               aux_g, aux_c,
+                                               "small train step")
     print(f"reference: small fine train_step GPU vs CPU: loss {lg:.6f} vs "
           f"{lc:.6f}, worst update error {worst_step:.3e} of its tensor's "
           f"largest update, xyz_grad_accum max abs err {acc_err:.3e}",
           flush=True)
 
-    # 7. the training CLI, this slice's main path; launches counted over it
+    # 6b. a rig step with the union cull and two-class emission, GPU vs
+    # CPU, from one mid-training state
+    small_rig_step(torch, dev, hp, opt, pipe, bg, card)
+
     del su, pool, deform, cams, small_pool, cpu_pool, s_gpu, s_cpu
     torch.cuda.empty_cache()
+
+    # 6c. the Waymo rig at full width: 1.5 M points, cull, two-class
+    waymo_launches = waymo_rig_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+
+    # 7. the training CLI, this slice's main path; launches counted over it
     _, argv, out, rec7, (per_view7, sweep7) = cli_phase(torch, dev, card)
     metrics_on_card(torch, rec7, card)
     train7 = rec7["train_launches"]
@@ -1598,10 +1998,21 @@ def main() -> int:
 
     # 8. --eval_only on phase 7's model path
     sweep8, _ = eval_only_phase(torch, argv, out, per_view7, card)
-    cli_launches = tuple(a + b + c for a, b, c in zip(train7, sweep7, sweep8))
-    print(f"compositor launches, phases 7-8: training {train7[0]} forward / "
-          f"{train7[1]} backward; final sweep {sweep7[0]} / {sweep7[1]}; "
-          f"--eval_only sweep {sweep8[0]} / {sweep8[1]}", flush=True)
+
+    # 9. the waymo_perf preset through the CLI on phase 7's clip
+    train9, sweep9 = perf_cli_phase(torch, argv, card)
+    path = {"4 render path": render_launches, "5 training slice":
+            train_launches, "5b rig step": rig_launches,
+            "6c waymo rig": waymo_launches, "7 CLI training": train7,
+            "7 final sweep": sweep7, "8 --eval_only sweep": sweep8,
+            "9 waymo_perf training": train9, "9 waymo_perf sweep": sweep9}
+    main_launches = tuple(sum(v[i] for v in path.values()) for i in (0, 1))
+    print("compositor launches, forward / backward: " + "; ".join(
+        f"{k} {v[0]} / {v[1]}" for k, v in path.items())
+        + f"; total {main_launches[0]} / {main_launches[1]}", flush=True)
+    check(rig_launches[0] > 0 and waymo_launches[0] > 0 and train9[0] > 0,
+          "a rig phase launched no kernel")
+    print(f"smoke run: {time.time() - T_START:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
     kernels = []
@@ -1612,7 +2023,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"s3gaussian_tpu_torch/csrc/{name}.cu",
             "replaces": f"s3gaussian_tpu/ops/tile_kernels.py:{line}",
-            "launches": cli_launches[0 if name == "composite_fwd" else 1],
+            "launches": main_launches[0 if name == "composite_fwd" else 1],
             "max_abs_err": d["max_err"],
             "ms": d["ms"],
             "plain_ms": d["plain_ms"],

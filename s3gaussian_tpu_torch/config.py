@@ -222,7 +222,7 @@ class RasterConfig:
     cull_margin_px: float = 32.0
     # tile rects cut to the alpha >= 1/255 ellipse (ops/project.py)
     tight_rect: bool = True
-    # two-class pair emission (not ported yet: raises when > 0)
+    # two-class pair emission: the periphery slots of this many bigs
     big_budget: int = 0
 
     __hash__ = object.__hash__

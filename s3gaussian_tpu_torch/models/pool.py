@@ -88,18 +88,28 @@ class PoolStats:
                            for _ in range(3)))
 
 
-def add_densification_stats(stats: PoolStats, mean2d_grad: torch.Tensor,
-                            radii: torch.Tensor,
-                            visible: torch.Tensor) -> PoolStats:
+def add_densification_stats(stats: PoolStats,
+                            mean2d_grad: Optional[torch.Tensor],
+                            radii: torch.Tensor, visible: torch.Tensor,
+                            grad_norm: Optional[torch.Tensor] = None,
+                            denom_inc: Optional[torch.Tensor] = None
+                            ) -> PoolStats:
     """Accumulate |grad(mean2D_ndc)| and the max screen radius over the
-    visible gaussians (reference gaussian_model.py:693-695)."""
-    norm = torch.linalg.norm(mean2d_grad[:, :2], dim=-1)
+    visible gaussians (reference gaussian_model.py:693-695).
+
+    ``grad_norm`` and ``denom_inc`` [Nc], when given, replace the norm and
+    the count: the rig step passes the sum of its per-camera norms and
+    the number of its cameras that drew each Gaussian, so the average
+    matches that of B single-camera steps."""
+    norm = (torch.linalg.norm(mean2d_grad[:, :2], dim=-1)
+            if grad_norm is None else grad_norm)
+    inc = visible.to(torch.float32) if denom_inc is None else denom_inc
     return PoolStats(
         max_radii2d=torch.where(
             visible, torch.maximum(stats.max_radii2d, radii.to(torch.float32)),
             stats.max_radii2d),
         xyz_grad_accum=stats.xyz_grad_accum + torch.where(visible, norm, 0.0),
-        denom=stats.denom + visible.to(torch.float32))
+        denom=stats.denom + inc)
 
 
 def create_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,

@@ -10,14 +10,17 @@ above every valid tile, and keep their depth bits so that they tie-break
 exactly as JAX's invalid tile ``0xFFFFFFFF`` does.  ``torch.sort`` runs
 with ``stable=True`` because ``lax.sort`` is stable.
 
-Only single-class emission is ported; two-class emission
-(``big_budget > 0``) is queued in ROADMAP.md.
+Two-class emission (``big_budget > 0``) gives every render slot a 2×2
+core and the first ``big_budget`` big Gaussians their periphery, in a
+second section of the slot stream.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from s3gaussian_tpu_torch.ops.project import ProjectedGaussians
@@ -40,6 +43,12 @@ class PairKeys(NamedTuple):
     n_visible: torch.Tensor        # [] visible gaussians (pre NR-cap)
     overflow_rect: torch.Tensor    # [] gaussians whose rect was clamped
     overflow_visible: torch.Tensor  # [] visible gaussians beyond the NR budget
+    # two-class emission only (None in single-class mode): slots
+    # [0, 4·NR) are the 2×2 cores in render-slot order, slots
+    # [4·NR, 4·NR + (rect_cap-4)·NB) the granted bigs' peripheries
+    big_sel: Optional[torch.Tensor] = None      # [NB] pool ids of the bigs
+    big_granted: Optional[torch.Tensor] = None  # [NR] slot got a periphery
+    big_rank: Optional[torch.Tensor] = None     # [NR] periphery section index
 
 
 def float_bits(x: torch.Tensor) -> torch.Tensor:
@@ -83,23 +92,40 @@ def _ellipse_ok(ca, cb, cc, q_cut, xy, tx, ty, tile_x, tile_y):
     return qmin <= q_cut[:, None]
 
 
+@functools.lru_cache(maxsize=None)
+def _peri_table(rect_w: int, rect_h: int) -> np.ndarray:
+    """Periphery offsets of two-class emission: entry oy·(rect_w−1)+ox
+    lists the rect_w×rect_h offsets outside the 2×2 core placed at
+    (ox, oy), which always lies inside the centre-clamped big rect.
+    Shape [(rect_w−1)·(rect_h−1), rect_cap−4, 2]."""
+    rows = []
+    for oy in range(rect_h - 1):
+        for ox in range(rect_w - 1):
+            rows.append([(dx, dy) for dy in range(rect_h)
+                         for dx in range(rect_w)
+                         if not (ox <= dx < ox + 2 and oy <= dy < oy + 2)])
+    return np.asarray(rows, np.int32)
+
+
 def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
                    max_visible: int, rect_w: int, rect_h: int,
                    tile_x: int = 16, tile_y: int = 16,
                    opacities: Optional[torch.Tensor] = None,
                    big_budget: int = 0) -> PairKeys:
-    """Visible compaction + single-class pair-key emission (no sort).
+    """Visible compaction + pair-key emission (no sort).
 
-    Each render slot emits up to rect_w×rect_h keys for the tiles its
-    rect covers, oversized rects clamped around the projected centre
-    (counted in ``overflow_rect``).  With ``opacities`` the exact
-    ellipse–tile cut drops pairs whose alpha stays below 1/255 on the
-    whole tile."""
+    Single-class: each render slot emits up to rect_w×rect_h keys for the
+    tiles its rect covers, oversized rects clamped around the projected
+    centre (counted in ``overflow_rect``).  Two-class (``big_budget > 0``
+    and a rect larger than 2×2): every slot emits its 2×2 centre-clamped
+    core, and the first ``big_budget`` slots whose rect exceeds 2×2, in
+    slot order, also emit the rest of their rect from a second section,
+    M = 4·NR + (rect_cap−4)·NB; bigs beyond the budget keep their core
+    only and are counted in ``overflow_rect``.  While the budget holds
+    the valid pairs are those of single-class emission.  With
+    ``opacities`` the exact ellipse–tile cut drops pairs whose alpha
+    stays below 1/255 on the whole tile."""
     rect_cap = rect_w * rect_h
-    if big_budget > 0 and rect_cap > 4 and rect_w >= 2 and rect_h >= 2:
-        raise NotImplementedError(
-            "two-class pair emission (big_budget > 0) is not ported yet; "
-            "see ROADMAP.md")
     dev = proj.depth.device
     use_two_key = two_key(grid_x * grid_y)
     n_pool = proj.depth.shape[0]
@@ -134,14 +160,7 @@ def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
     x0c = torch.clamp(cx - rect_w // 2, x0, torch.maximum(x0, x1 - wc))
     y0c = torch.clamp(cy - rect_h // 2, y0, torch.maximum(y0, y1 - hc))
 
-    r = torch.arange(rect_cap, dtype=torch.int32, device=dev)[None, :]
-    dx = r % rect_w
-    dy = r // rect_w
-    valid = (dx < wc[:, None]) & (dy < hc[:, None]) & sel_visible[:, None]
-    tx = x0c[:, None] + dx
-    ty = y0c[:, None] + dy
-    tile = (ty * grid_x + tx).to(torch.int64)
-
+    cut = None
     if opacities is not None:
         op = opacities.detach().reshape(-1)
         op_s = op if nr >= n_pool else op[sel]
@@ -150,24 +169,77 @@ def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
         con = proj.conic.detach()
         con = con if nr >= n_pool else con[sel]
         # dead/culled rows may carry garbage conics; they are invalid anyway
-        ca = torch.clamp(con[:, 0], min=1e-12)
-        cb = con[:, 1]
-        cc = torch.clamp(con[:, 2], min=1e-12)
-        valid = valid & _ellipse_ok(ca, cb, cc, q_cut, xy, tx, ty,
-                                    tile_x, tile_y)
+        cut = (torch.clamp(con[:, 0], min=1e-12), con[:, 1],
+               torch.clamp(con[:, 2], min=1e-12), q_cut, xy)
 
-    dfull = float_bits(proj.depth[sel].detach())[:, None]
+    def emit(x0e, y0e, dx, dy, valid, rows=None):
+        """Tiles at (x0e+dx, y0e+dy) [S, R], with the ellipse cut of the
+        render slots ``rows`` (all slots when None)."""
+        tx = x0e[:, None] + dx
+        ty = y0e[:, None] + dy
+        if cut is not None:
+            c = cut if rows is None else [v[rows] for v in cut]
+            valid = valid & _ellipse_ok(*c, tx, ty, tile_x, tile_y)
+        return (ty * grid_x + tx).to(torch.int64), valid
+
+    dfull = float_bits(proj.depth[sel].detach())
+    extras = {}
+    if big_budget <= 0 or rect_cap <= 4 or rect_w < 2 or rect_h < 2:
+        r = torch.arange(rect_cap, dtype=torch.int32, device=dev)[None, :]
+        dx, dy = r % rect_w, r // rect_w
+        tile, valid = emit(x0c, y0c, dx, dy,
+                           (dx < wc[:, None]) & (dy < hc[:, None])
+                           & sel_visible[:, None])
+        dslot = dfull[:, None].expand(nr, rect_cap)
+    else:
+        # the 2×2 core of every slot, centre-clamped inside its rect
+        nb = min(big_budget, nr)
+        ws = torch.clamp(w, max=2)
+        hs = torch.clamp(h, max=2)
+        x0s = torch.clamp(cx - 1, x0, torch.maximum(x0, x1 - ws))
+        y0s = torch.clamp(cy - 1, y0, torch.maximum(y0, y1 - hs))
+        rc = torch.arange(4, dtype=torch.int32, device=dev)[None, :]
+        cdx, cdy = rc % 2, rc // 2
+        core_tile, core_valid = emit(x0s, y0s, cdx, cdy,
+                                     (cdx < ws[:, None]) & (cdy < hs[:, None])
+                                     & sel_visible[:, None])
+        # periphery sections for the first nb bigs, in slot order
+        is_big = sel_visible & ((w > 2) | (h > 2))
+        brank = torch.cumsum(is_big.to(torch.int32), 0,
+                             dtype=torch.int32) - 1
+        granted = is_big & (brank < nb)
+        n_demoted = (is_big & ~granted).sum()
+        bsl = torch.sort((~granted).to(torch.int32), stable=True).indices[:nb]
+        bgranted = granted[bsl]         # masks the tail when < nb bigs
+        table = torch.from_numpy(_peri_table(rect_w, rect_h)).to(dev)
+        # the clip guards the non-granted tail, whose rects may be junk
+        tidx = torch.clamp((y0s - y0c)[bsl] * (rect_w - 1)
+                           + (x0s - x0c)[bsl], 0, table.shape[0] - 1).long()
+        pdx, pdy = table[tidx].unbind(-1)           # [nb, rect_cap-4]
+        peri_tile, peri_valid = emit(
+            x0c[bsl], y0c[bsl], pdx, pdy,
+            (pdx < wc[bsl][:, None]) & (pdy < hc[bsl][:, None])
+            & bgranted[:, None], rows=bsl)
+        tile = torch.cat([core_tile.reshape(-1), peri_tile.reshape(-1)])
+        valid = torch.cat([core_valid.reshape(-1), peri_valid.reshape(-1)])
+        dslot = torch.cat([dfull[:, None].expand(nr, 4).reshape(-1),
+                           dfull[bsl][:, None].expand(nb, rect_cap - 4)
+                           .reshape(-1)])
+        overflow_rect = overflow_rect + n_demoted
+        extras = {"big_sel": sel[bsl], "big_granted": granted,
+                  "big_rank": brank}
+
     if use_two_key:
         tile = torch.where(valid, tile, INVALID_TILE_TWO_KEY)
-        keys = (tile << 32) | dfull
+        keys = (tile << 32) | dslot
     else:
         keys = torch.where(valid,
-                           (tile << DEPTH_BITS) | (dfull >> (32 - DEPTH_BITS)),
+                           (tile << DEPTH_BITS) | (dslot >> (32 - DEPTH_BITS)),
                            INVALID_KEY)
     return PairKeys(sel=sel, sel_visible=sel_visible, keys=keys.reshape(-1),
                     two_key=use_two_key, n_visible=n_visible,
                     overflow_rect=overflow_rect,
-                    overflow_visible=overflow_visible)
+                    overflow_visible=overflow_visible, **extras)
 
 
 def sort_pairs(pk: PairKeys):

@@ -6,7 +6,7 @@ Dataflow, in three stages that ``chip_smoke.py`` also times one by one:
   ``project_and_key``: build_cov3d → project → SH colours → pair keys on
   detached inputs → [16, N] feature rows;
   ``sort_stream``: ONE stable (key, slot) sort → ONE gather of the 10
-  data rows at ``slot // rect_cap`` → tile ranges;
+  data rows at each sorted slot's column → tile ranges;
   ``tile_kernels.CompositeTiles``: the CUDA compositors, forward and
   backward (plain PyTorch on CPU tensors) → ``unpack_tiles`` →
   ``color = rgb + final_T·bg``.
@@ -15,7 +15,11 @@ Keys, the sort and the tile ranges are computed on detached tensors.  The
 gather stays differentiable: its backward sums the per-pair gradients of
 the backward compositor into the render set and the pool, which replaces
 the JAX package's un-sort and rect-axis reshape-sum (a TPU layout
-choice).  Slots past ``n_pairs`` get zero gradient from the kernel.
+choice).  With two-class emission the columns are the render set
+followed by the granted bigs (``PairKeys.big_sel``), so the gather's
+backward also sums each periphery's gradients into its pool row, where
+JAX adds them through ``big_rank``.  Slots past ``n_pairs`` get zero
+gradient from the kernel.
 Every other gradient (EWA projection, covariance, SH) is autograd.
 """
 
@@ -80,11 +84,15 @@ def project_and_key(settings: RasterSettings, means3d: torch.Tensor,
         opacities=opacities if cfg.tight_rect else None)
     colors = (sh_to_color(shs, means3d, settings.campos, settings.sh_degree)
               if colors_precomp is None else colors_precomp)
+    nr = min(cfg.max_visible, means3d.shape[0])
+    nb = (min(cfg.big_budget, nr)
+          if (cfg.big_budget > 0 and cfg.rect_cap > 4 and cfg.rect_w >= 2
+              and cfg.rect_h >= 2) else 0)
     pk = make_pair_keys(
         ProjectedGaussians(*[x.detach() for x in proj]), grid_x, grid_y,
         cfg.max_visible, cfg.rect_w, cfg.rect_h, cfg.tile_x, cfg.tile_y,
         opacities=opacities.detach() if cfg.tight_rect else None,
-        big_budget=cfg.big_budget)
+        big_budget=nb)
     feat_pool = comp.pack_pool_features(proj.xy, proj.conic, opacities,
                                         colors, proj.depth)
     return proj, pk, feat_pool
@@ -98,10 +106,19 @@ def sort_stream(feat_pool: torch.Tensor, pk: PairKeys, n_tiles: int,
     m = pk.keys.shape[0]
     bp = min(m, pair_budget)
     sorted_tile, sorted_slot = sort_pairs(pk)
-    data = feat_pool[:comp.N_DATA_ROWS]
-    if pk.sel.shape[0] < feat_pool.shape[1]:
-        data = data[:, pk.sel]
-    rows = data[:, sorted_slot[:bp] // rect_cap]
+    pool_rows = feat_pool[:comp.N_DATA_ROWS]
+    nr = pk.sel.shape[0]
+    data = pool_rows if nr >= feat_pool.shape[1] else pool_rows[:, pk.sel]
+    slots = sorted_slot[:bp]
+    if pk.big_sel is None:
+        gid = slots // rect_cap
+    else:
+        # two sections: cores at stride 4, then the bigs' peripheries
+        data = torch.cat([data, pool_rows[:, pk.big_sel]], 1)
+        m1 = 4 * nr
+        gid = torch.where(slots < m1, slots // 4,
+                          nr + (slots - m1) // (rect_cap - 4))
+    rows = data[:, gid]
     const = torch.zeros(comp.PAIR_FEAT_DIM - comp.N_DATA_ROWS, bp,
                         dtype=rows.dtype, device=rows.device)
     const[0] = 1.0                                   # the FONE channel

@@ -1,5 +1,5 @@
-"""Scene rendering (port of ``s3gaussian_tpu/render/renderer.py``: ``render``
-and the forward of ``render_multicam``), differentiable.
+"""Scene rendering (port of ``s3gaussian_tpu/render/renderer.py``:
+``render`` and ``render_multicam``), differentiable.
 
 The coarse stage rasterizes the raw pool; the fine stage routes the raw
 attributes through the deformation field first, then applies the
@@ -8,6 +8,8 @@ activations.  Optional passes: the DINO feature head rendered as colours
 which re-renders the pool masked by |dx| > mean — alive-mask variations
 of the fixed-capacity pool.  ``mean2d_tap`` ([Nc,2] zeros) collects the
 NDC screen gradient of the main pass for the densification statistics.
+With ``cull_before_deform`` the fine stage first culls the undeformed
+pool to a working set of ``max_visible`` rows (``ops/compact.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,10 @@ from s3gaussian_tpu_torch.config import PipelineParams, RasterConfig
 from s3gaussian_tpu_torch.data.cameras import Camera
 from s3gaussian_tpu_torch.models.deformation import DeformationField
 from s3gaussian_tpu_torch.models.pool import GaussianPool
-from s3gaussian_tpu_torch.ops.project import sh_to_color
+from s3gaussian_tpu_torch.ops.compact import (candidates, expand_by_rank,
+                                              take_compact)
+from s3gaussian_tpu_torch.ops.project import (build_cov3d, project_gaussians,
+                                              sh_to_color)
 from s3gaussian_tpu_torch.ops.rasterizer import RasterSettings, rasterize
 
 
@@ -36,10 +41,11 @@ def make_settings(camera: Camera, bg: torch.Tensor, sh_degree: int,
 
 def _attributes(pool: GaussianPool, deform: Optional[DeformationField],
                 time: torch.Tensor, aabb: Optional[torch.Tensor], stage: str):
-    """The pool's attributes at ``time`` as the rasterizer takes them: raw
-    in the coarse stage, through the deformation field in the fine one,
-    then activated.  (xyz, scales, rotations, opacity [N], shs, the
-    field's DeformOut or None)."""
+    """The attributes of ``pool`` (the whole pool or the culled working
+    set) at ``time`` as the rasterizer takes them: raw in the coarse
+    stage, through the deformation field in the fine one, then activated.
+    (xyz, scales, rotations, opacity [N], shs, the field's DeformOut or
+    None)."""
     out = None
     if "coarse" in stage:
         xyz_f, scales_f, rot_f, op_f, shs_f = (
@@ -56,6 +62,43 @@ def _attributes(pool: GaussianPool, deform: Optional[DeformationField],
     return (xyz_f, torch.exp(scales_f),
             rot_f / torch.linalg.norm(rot_f, dim=-1, keepdim=True),
             torch.sigmoid(op_f)[:, 0], shs_f, out)
+
+
+def cull_working_set(pool: GaussianPool, cameras: Sequence[Camera],
+                     cfg: RasterConfig, scaling_modifier: float = 1.0,
+                     taps: Sequence[Optional[torch.Tensor]] = ()):
+    """The pre-deformation cull: the undeformed pool projected on detached
+    inputs with ``cfg.cull_margin_px`` of margin for each camera, the
+    union of their visibilities ordered visible-first, the first
+    ``max_visible`` rows gathered through ``take_compact``.  Returns the
+    working set as a pool (``alive`` masks its real members), the union
+    visibility [N] that ordered it, and each tap gathered alike."""
+    with torch.no_grad():
+        cov0 = build_cov3d(torch.exp(pool.scaling), pool.rotation,
+                           scaling_modifier)
+        vis0 = None
+        for cam in cameras:
+            v = project_gaussians(
+                pool.xyz, cov0, cam.world_view, cam.full_proj, cam.tanfovx,
+                cam.tanfovy, cam.image_width, cam.image_height,
+                tile_x=cfg.tile_x, tile_y=cfg.tile_y, alive=pool.alive,
+                radius_margin=cfg.cull_margin_px).visible
+            vis0 = v if vis0 is None else vis0 | v
+        nr = min(cfg.max_visible, pool.capacity)
+        cand = candidates(vis0, nr)
+        alive_w = vis0[cand] & (torch.arange(nr, device=cand.device)
+                                < vis0.sum())
+
+    def take(x):
+        return None if x is None else take_compact(x, cand, vis0)
+
+    work = GaussianPool(xyz=take(pool.xyz),
+                        features_dc=take(pool.features_dc),
+                        features_rest=take(pool.features_rest),
+                        scaling=take(pool.scaling),
+                        rotation=take(pool.rotation),
+                        opacity=take(pool.opacity), alive=alive_w)
+    return work, vis0, [take(t) for t in taps]
 
 
 def _dynamic_split(dx: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
@@ -79,13 +122,19 @@ def render(camera: Camera, pool: GaussianPool,
            cfg: RasterConfig = RasterConfig()) -> Dict[str, Any]:
     """Render one camera.  Returns a dict with the reference's keys:
     render, depth, radii, visibility_filter, alive_work, raster_aux, and
-    as asked feat, render_d/depth_d/render_s/depth_s, dx/dshs."""
+    as asked feat, render_d/depth_d/render_s/depth_s, dx/dshs.
+
+    With ``cfg.cull_before_deform`` in the fine stage (and neither the
+    decomposition nor ``override_color``) the field and the rasterizer
+    run on the culled working set: dx, dshs and ``alive_work`` are
+    working-set shaped, radii and visibility are expanded back to the
+    pool by rank."""
     fine = "fine" in stage
+    vis0 = None
     if (cfg.cull_before_deform and fine and not return_decomposition
             and override_color is None):
-        raise NotImplementedError(
-            "cull_before_deform (take_compact) is not ported yet; "
-            "see ROADMAP.md")
+        pool, vis0, (mean2d_tap,) = cull_working_set(
+            pool, [camera], cfg, scaling_modifier, [mean2d_tap])
     xyz = pool.xyz
     xyz_f, scales_act, rot_act, op_act, shs_f, out = _attributes(
         pool, deform, camera.time, aabb, stage)
@@ -110,6 +159,9 @@ def render(camera: Camera, pool: GaussianPool,
                          alive=alive_mask, cfg=cfg)
 
     color, radii, depth, aux = rast(pool.alive, tap=mean2d_tap)
+    if vis0 is not None:
+        radii = expand_by_rank(radii, vis0)
+        aux = {**aux, "visible": expand_by_rank(aux["visible"], vis0)}
     result: Dict[str, Any] = {
         "render": color,
         "depth": depth,
@@ -145,50 +197,62 @@ def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
                     bg: torch.Tensor, aabb: Optional[torch.Tensor] = None,
                     active_sh_degree: int = 3, stage: str = "fine",
                     return_decomposition: bool = False,
+                    render_feat: bool = False,
+                    mean2d_tap: Optional[torch.Tensor] = None,
                     cfg: RasterConfig = RasterConfig()) -> Dict[str, Any]:
     """Render a rig of cameras that share one time (the Waymo 3-camera
     rig at one frame) with ONE deformation evaluation; only the
-    rasterization runs per camera.
+    rasterization runs per camera (the unrolled loop of JAX's
+    ``render_multicam``; its ``multicam_scan`` core computes the same).
 
-    Returns per-camera stacked ``render [B,3,H,W]`` and ``depth [B,H,W]``,
+    Returns per-camera stacked ``render [B,3,H,W]``, ``depth [B,H,W]`` and
+    with ``render_feat`` ``feat [B,3,H,W]`` (positions detached),
     pool-shaped ``radii`` reduced by elementwise max and
     ``raster_aux.visible`` by any (the reference's batch semantics,
     train.py:489-492), ``raster_aux.vis_count`` (cameras that drew each
     Gaussian), the summed ``n_pairs``, the largest overflow counts, and
-    the shared ``dx``/``dshs``/``alive_work``.  With the decomposition,
-    the |dx| > mean split is made once from the shared ``dx`` and
-    re-rendered per camera (``render_d``/``depth_d``/``render_s``/
-    ``depth_s`` stacked, ``dynamic_mask``).  The JAX package's
-    ``multicam_scan`` compiles the same loop as a scan; here the loop is
-    Python whatever it says.  The feature pass and the per-camera
-    ``mean2d_tap`` of the rig train step wait for it (ROADMAP.md §1 item
-    4).
+    the shared ``dx``/``dshs``/``alive_work``.  ``mean2d_tap`` is shared
+    [Nc,2] or per camera [B,Nc,2].  With ``cfg.cull_before_deform`` in
+    the fine stage one cull by the union of the rig's visibilities serves
+    every camera (``max_visible`` sized for the union), and the reduced
+    radii, visibility and counts are expanded back to the pool once,
+    after the loop.  With the decomposition (never culled), the
+    |dx| > mean split is made once from the shared ``dx`` and re-rendered
+    per camera (``render_d``/``depth_d``/``render_s``/``depth_s``
+    stacked, ``dynamic_mask``).
     """
     fine = "fine" in stage
+    n_cams = len(cameras)
+    percam_tap = mean2d_tap is not None and mean2d_tap.dim() == 3
+    taps = (list(mean2d_tap) if percam_tap else [mean2d_tap] * n_cams)
+    vis0 = None
     if cfg.cull_before_deform and fine and not return_decomposition:
-        raise NotImplementedError(
-            "cull_before_deform (take_compact) is not ported yet; "
-            "see ROADMAP.md")
+        pool, vis0, taps = cull_working_set(pool, cameras, cfg, taps=(
+            taps if percam_tap else taps[:1]))
+        if not percam_tap:
+            taps = taps * n_cams
     xyz_f, scales_act, rot_act, op_act, shs_f, out = _attributes(
         pool, deform, cameras[0].time, aabb, stage)
-    dx, dshs = (out.dx, out.dshs) if out is not None else (None, None)
+    dx, dshs, feat = ((out.dx, out.dshs, out.feat) if out is not None
+                      else (None, None, None))
 
     # reference quirk: view directions from the undeformed positions
     colors = [sh_to_color(shs_f, pool.xyz, cam.campos, active_sh_degree)
               if pipe.convert_SHs_python else None for cam in cameras]
 
-    def rast(b, alive_mask):
+    def rast(b, alive_mask, tap=None):
         return rasterize(make_settings(cameras[b], bg, active_sh_degree),
                          xyz_f, op_act, scales=scales_act, rotations=rot_act,
                          shs=None if colors[b] is not None else shs_f,
-                         colors_precomp=colors[b], alive=alive_mask, cfg=cfg)
+                         colors_precomp=colors[b], mean2d_tap=tap,
+                         alive=alive_mask, cfg=cfg)
 
-    renders, depths = [], []
+    renders, depths, feats = [], [], []
     radii_red = visible_red = vis_count = None
     n_pairs = 0
     ovf = {}
-    for b in range(len(cameras)):
-        color, radii, depth, aux = rast(b, pool.alive)
+    for b in range(n_cams):
+        color, radii, depth, aux = rast(b, pool.alive, taps[b])
         renders.append(color)
         depths.append(depth)
         vis = aux["visible"]
@@ -202,6 +266,16 @@ def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
         n_pairs = n_pairs + aux["n_pairs"]
         for k in ("overflow_rect", "overflow_visible", "overflow_pairs"):
             ovf[k] = aux[k] if k not in ovf else torch.maximum(ovf[k], aux[k])
+        if render_feat and fine and feat is not None:
+            feats.append(rasterize(
+                make_settings(cameras[b], bg, active_sh_degree),
+                xyz_f.detach(), op_act, scales=scales_act, rotations=rot_act,
+                colors_precomp=feat, alive=pool.alive, cfg=cfg)[0])
+    if vis0 is not None:
+        # the reductions commute with the expansion: one after the loop
+        radii_red, visible_red, vis_count = (
+            expand_by_rank(x, vis0)
+            for x in (radii_red, visible_red, vis_count))
 
     result: Dict[str, Any] = {
         "render": torch.stack(renders),
@@ -214,12 +288,14 @@ def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
         "dx": dx,
         "dshs": dshs,
     }
+    if feats:
+        result["feat"] = torch.stack(feats)
 
     if return_decomposition and dx is not None:
         dyn = _dynamic_split(dx, pool.alive)
         split = {k: [] for k in ("render_d", "depth_d", "render_s",
                                  "depth_s")}
-        for b in range(len(cameras)):
+        for b in range(n_cams):
             color_d, _, depth_d, _ = rast(b, dyn)
             color_s, _, depth_s, _ = rast(b, pool.alive & ~dyn)
             for k, v in (("render_d", color_d), ("depth_d", depth_d),

@@ -1,8 +1,8 @@
-"""The single-camera train step, coarse and fine (port of
-``s3gaussian_tpu/train/trainer.py``: ``TrainState``, ``init_state``,
-``reinit_optimizer``, ``lr_dict``, ``compute_loss``,
-``apply_param_update``, ``train_step``, density control and
-``probe_pool``).
+"""The train step, coarse and fine, on one camera or on a same-time rig
+(port of ``s3gaussian_tpu/train/trainer.py``: ``TrainState``,
+``init_state``, ``reinit_optimizer``, ``lr_dict``, ``compute_loss``,
+``compute_loss_multicam``, ``apply_param_update``, ``train_step``,
+``train_step_multicam``, density control and ``probe_pool``).
 
   loss = L1(rgb)
        + λ_dx·mean|dx| + λ_dshs·mean|dshs|              (fine)
@@ -16,16 +16,17 @@ counterpart): render forward and backward through the CUDA compositors,
 the losses, dead-row gradient masking, the NaN watchdog, the scheduled
 per-group Adam and the densification statistics fed by the gradient of
 the ``mean2d_tap``.  The state's tensors are updated in place; the step
-returns the state with its new counters.  ``densify_step`` and
-``opacity_reset_step`` edit the pool's rows and their Adam moments and
-return a new state.  The scanned and multicam variants are not ported yet
-(ROADMAP.md).
+returns the state with its new counters.  The rig step evaluates the
+field once for the rig's cameras and pools the losses over the stacked
+renders.  ``densify_step`` and ``opacity_reset_step`` edit the pool's
+rows and their Adam moments and return a new state.  JAX's scanned
+steps (``train_steps_scan*``) have no counterpart: a caller loops these.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,7 +40,7 @@ from s3gaussian_tpu_torch.models.pool import (GaussianPool, PoolStats,
                                               add_densification_stats,
                                               densify_and_prune,
                                               reset_opacity)
-from s3gaussian_tpu_torch.render.renderer import render
+from s3gaussian_tpu_torch.render.renderer import render, render_multicam
 from s3gaussian_tpu_torch.train.losses import (depth_loss, l1_loss, l2_loss,
                                                psnr, ssim)
 from s3gaussian_tpu_torch.train.lr import expon_lr
@@ -118,6 +119,65 @@ def lr_dict(step: torch.Tensor, opt: OptimizationParams,
     }
 
 
+def _loss_terms(pkg: Dict[str, Any], gt: torch.Tensor,
+                gt_depth: Optional[torch.Tensor],
+                gt_feat: Optional[torch.Tensor], fine: bool,
+                deform: DeformationField, hp: ModelHiddenParams,
+                opt: OptimizationParams
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The step's loss from a render package and its targets ([3,H,W] or
+    a rig's stacked [B,3,H,W]; pooled means over the rig, as the
+    reference's ``torch.cat`` of the batch): (loss, aux of radii,
+    visibility, budget counters and a ``metrics`` dict of 0-d tensors)."""
+    loss = l1_loss(pkg["render"], gt)
+    metrics = {"l1": loss, "psnr": psnr(pkg["render"], gt)}
+
+    # dx/dshs live on the render working set (the whole pool, or the
+    # culled candidates with cull_before_deform)
+    w_alive = pkg["alive_work"]
+    n_alive = torch.clamp(w_alive.sum(), min=1)
+    if fine and not hp.no_dx and opt.lambda_dx != 0:
+        dx_l = (torch.where(w_alive[:, None], torch.abs(pkg["dx"]), 0.0).sum()
+                / (n_alive * 3))
+        loss = loss + opt.lambda_dx * dx_l
+        metrics["dx"] = dx_l
+    if fine and not hp.no_dshs and opt.lambda_dshs != 0:
+        dshs_l = (torch.where(w_alive[:, None, None], torch.abs(pkg["dshs"]),
+                              0.0).sum() / (n_alive * 48))
+        loss = loss + opt.lambda_dshs * dshs_l
+    if opt.lambda_depth != 0 and gt_depth is not None:
+        dl = depth_loss(pkg["depth"], gt_depth, "l2")
+        loss = loss + opt.lambda_depth * dl
+        metrics["depth"] = dl
+    if fine and hp.time_smoothness_weight != 0:
+        reg = hx.compute_regulation(deform.grid, len(hp.multires),
+                                    hp.time_smoothness_weight,
+                                    hp.l1_time_planes, hp.plane_tv_weight)
+        loss = loss + reg
+        metrics["reg"] = reg
+    if opt.lambda_dssim != 0:
+        s = ssim(pkg["render"], gt)
+        loss = loss + opt.lambda_dssim * (1.0 - s)
+        metrics["ssim"] = s
+    if gt_feat is not None:
+        fl = l2_loss(pkg["feat"], gt_feat) * opt.lambda_feat
+        loss = loss + fl
+        metrics["feat"] = fl
+
+    metrics["loss"] = loss
+    raster = pkg["raster_aux"]
+    aux = {"radii": pkg["radii"],
+           "visible": raster["visible"],
+           "n_pairs": raster["n_pairs"],
+           "overflow_rect": raster["overflow_rect"],
+           "overflow_visible": raster["overflow_visible"],
+           "overflow_pairs": raster["overflow_pairs"],
+           "metrics": {k: v.detach() for k, v in metrics.items()}}
+    if "vis_count" in raster:
+        aux["vis_count"] = raster["vis_count"]
+    return loss, aux
+
+
 def compute_loss(pool: GaussianPool, deform: DeformationField,
                  tap: torch.Tensor, camera: Camera, stage: str,
                  active_sh_degree: int, hp: ModelHiddenParams,
@@ -131,61 +191,52 @@ def compute_loss(pool: GaussianPool, deform: DeformationField,
     pkg = render(camera, pool, deform if fine else None, pipe, bg, aabb,
                  active_sh_degree, stage=stage, return_dx=True,
                  render_feat=want_feat, mean2d_tap=tap, cfg=cfg)
+    return _loss_terms(
+        pkg, camera.image.permute(2, 0, 1), camera.depth_map,
+        camera.feat_map.permute(2, 0, 1) if want_feat else None, fine,
+        deform, hp, opt)
 
-    gt = camera.image.permute(2, 0, 1)                  # [3,H,W]
-    loss = l1_loss(pkg["render"], gt)
-    metrics = {"l1": loss, "psnr": psnr(pkg["render"], gt)}
 
-    w_alive = pkg["alive_work"]
-    n_alive = torch.clamp(w_alive.sum(), min=1)
-    if fine and not hp.no_dx and opt.lambda_dx != 0:
-        dx_l = (torch.where(w_alive[:, None], torch.abs(pkg["dx"]), 0.0).sum()
-                / (n_alive * 3))
-        loss = loss + opt.lambda_dx * dx_l
-        metrics["dx"] = dx_l
-    if fine and not hp.no_dshs and opt.lambda_dshs != 0:
-        dshs_l = (torch.where(w_alive[:, None, None], torch.abs(pkg["dshs"]),
-                              0.0).sum() / (n_alive * 48))
-        loss = loss + opt.lambda_dshs * dshs_l
-    if opt.lambda_depth != 0 and camera.depth_map is not None:
-        dl = depth_loss(pkg["depth"], camera.depth_map, "l2")
-        loss = loss + opt.lambda_depth * dl
-        metrics["depth"] = dl
-    if fine and hp.time_smoothness_weight != 0:
-        reg = hx.compute_regulation(deform.grid, len(hp.multires),
-                                    hp.time_smoothness_weight,
-                                    hp.l1_time_planes, hp.plane_tv_weight)
-        loss = loss + reg
-        metrics["reg"] = reg
-    if opt.lambda_dssim != 0:
-        s = ssim(pkg["render"], gt)
-        loss = loss + opt.lambda_dssim * (1.0 - s)
-        metrics["ssim"] = s
-    if want_feat:
-        fl = l2_loss(pkg["feat"], camera.feat_map.permute(2, 0, 1)) \
-            * opt.lambda_feat
-        loss = loss + fl
-        metrics["feat"] = fl
-
-    metrics["loss"] = loss
-    aux = {"radii": pkg["radii"],
-           "visible": pkg["raster_aux"]["visible"],
-           "n_pairs": pkg["raster_aux"]["n_pairs"],
-           "overflow_rect": pkg["raster_aux"]["overflow_rect"],
-           "overflow_visible": pkg["raster_aux"]["overflow_visible"],
-           "overflow_pairs": pkg["raster_aux"]["overflow_pairs"],
-           "metrics": {k: v.detach() for k, v in metrics.items()}}
-    return loss, aux
+def compute_loss_multicam(pool: GaussianPool, deform: DeformationField,
+                          tap: torch.Tensor, cameras: Sequence[Camera],
+                          stage: str, active_sh_degree: int,
+                          hp: ModelHiddenParams, opt: OptimizationParams,
+                          pipe: PipelineParams, aabb: torch.Tensor,
+                          bg: torch.Tensor, cfg: RasterConfig
+                          ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The loss of a rig of same-time cameras, pooled over the stacked
+    [B,...] renders as the reference's ``batch_size > 1`` loop pools its
+    ``torch.cat`` (depth pools its valid mask over the rig); the dx,
+    dshs and hexplane terms once, as the rig shares one field
+    evaluation.  ``tap`` is shared [Nc,2] or per camera [B,Nc,2].  The
+    aux adds ``vis_count``."""
+    fine = "fine" in stage
+    want_feat = (fine and hp.feat_head
+                 and all(c.feat_map is not None for c in cameras))
+    pkg = render_multicam(cameras, pool, deform if fine else None, pipe, bg,
+                          aabb, active_sh_degree, stage=stage,
+                          render_feat=want_feat, mean2d_tap=tap, cfg=cfg)
+    has_depth = all(c.depth_map is not None for c in cameras)
+    return _loss_terms(
+        pkg, torch.stack([c.image.permute(2, 0, 1) for c in cameras]),
+        torch.stack([c.depth_map for c in cameras]) if has_depth else None,
+        (torch.stack([c.feat_map.permute(2, 0, 1) for c in cameras])
+         if want_feat else None), fine, deform, hp, opt)
 
 
 @torch.no_grad()
 def apply_param_update(state: TrainState, grads, tap_grad: torch.Tensor,
                        loss: torch.Tensor, radii: torch.Tensor,
                        visible: torch.Tensor, opt: OptimizationParams,
-                       spatial_lr_scale: float) -> TrainState:
+                       spatial_lr_scale: float, lr_scale: float = 1.0,
+                       vis_count: Optional[torch.Tensor] = None
+                       ) -> TrainState:
     """Post-gradient half of a step: dead-row gradient masking, the NaN
-    watchdog, the scheduled learning rates, Adam (in place) and the
-    densification statistics."""
+    watchdog, the scheduled learning rates times ``lr_scale``, Adam (in
+    place) and the densification statistics.  With ``vis_count`` (the
+    rig step's per-camera statistics) ``tap_grad`` is the precomputed
+    per-Gaussian sum of the cameras' screen-gradient norms [Nc] and
+    ``vis_count`` the denominator's increment."""
     # dead pool slots never move: their placeholder values keep all
     # downstream math finite
     alive = state.pool.alive
@@ -201,32 +252,42 @@ def apply_param_update(state: TrainState, grads, tap_grad: torch.Tensor,
              for g, d in grads.items()}
     tap_grad = torch.where(finite, tap_grad, 0.0)
 
-    fin = finite.to(torch.float32)
+    fin = finite.to(torch.float32) * lr_scale
     lrs = {k: v * fin for k, v in
            lr_dict(state.step, opt, spatial_lr_scale).items()}
     params = param_tree(state.pool, state.deform)
     adam = adam_update(params, grads, state.adam,
                        lambda group, name: lrs[path_group(group, name)])
-    stats = add_densification_stats(state.stats, tap_grad, radii, visible)
+    if vis_count is None:
+        stats = add_densification_stats(state.stats, tap_grad, radii,
+                                        visible)
+    else:
+        stats = add_densification_stats(state.stats, None, radii, visible,
+                                        grad_norm=tap_grad,
+                                        denom_inc=vis_count)
     return replace(state, adam=adam, stats=stats, step=state.step + 1,
                    nan_skips=state.nan_skips + (~finite).to(torch.int32))
 
 
-def step_forward(state: TrainState, camera: Camera, stage: str,
-                 active_sh_degree: int, hp: ModelHiddenParams,
+def step_forward(state: TrainState, camera: Camera | Sequence[Camera],
+                 stage: str, active_sh_degree: int, hp: ModelHiddenParams,
                  opt: OptimizationParams, pipe: PipelineParams,
                  cfg: RasterConfig, bg: torch.Tensor):
     """The forward half of a step: the loss over leaf views of the pool's
-    tensors, the field's parameters and a zero ``mean2d_tap``.
-    Returns (loss, aux, params tree, tap)."""
+    tensors, the field's parameters and a zero ``mean2d_tap``.  Given a
+    list of same-time cameras it is the rig step's: ``compute_loss_multicam``
+    with a per-camera tap [B,Nc,2] when ``opt.multicam_percam_stats``,
+    else a shared one.  Returns (loss, aux, params tree, tap)."""
     pool = state.pool.with_params({k: v.detach().requires_grad_(True)
                                    for k, v in
                                    state.pool.param_dict().items()})
-    tap = torch.zeros(pool.capacity, 2, device=pool.xyz.device,
-                      requires_grad=True)
-    loss, aux = compute_loss(pool, state.deform, tap, camera, stage,
-                             active_sh_degree, hp, opt, pipe, state.aabb,
-                             bg, cfg)
+    rig = isinstance(camera, (list, tuple))
+    shape = ((len(camera),) if rig and opt.multicam_percam_stats else ()) \
+        + (pool.capacity, 2)
+    tap = torch.zeros(shape, device=pool.xyz.device, requires_grad=True)
+    loss_fn = compute_loss_multicam if rig else compute_loss
+    loss, aux = loss_fn(pool, state.deform, tap, camera, stage,
+                        active_sh_degree, hp, opt, pipe, state.aabb, bg, cfg)
     return loss, aux, param_tree(pool, state.deform), tap
 
 
@@ -260,6 +321,41 @@ def train_step(state: TrainState, camera: Camera, stage: str,
     return new_state, aux
 
 
+def rig_update(state: TrainState, grads, tap_grad: torch.Tensor,
+               loss: torch.Tensor, aux: Dict[str, Any], n_cams: int,
+               opt: OptimizationParams, spatial_lr_scale: float
+               ) -> TrainState:
+    """``apply_param_update`` of a rig step: with per-camera statistics
+    the tap's gradient becomes Σ_b ‖g_b·B‖ (the batch loss is a mean over
+    the B cameras) and the denominator grows by ``vis_count``; every
+    learning rate is scaled by ``opt.multicam_lr_scale``."""
+    percam = bool(opt.multicam_percam_stats)
+    if percam:
+        tap_grad = torch.linalg.norm(tap_grad[..., :2] * n_cams,
+                                     dim=-1).sum(0)
+    return apply_param_update(state, grads, tap_grad, loss, aux["radii"],
+                              aux["visible"], opt, spatial_lr_scale,
+                              lr_scale=opt.multicam_lr_scale,
+                              vis_count=aux["vis_count"] if percam else None)
+
+
+def train_step_multicam(state: TrainState, cameras: Sequence[Camera],
+                        stage: str, active_sh_degree: int,
+                        hp: ModelHiddenParams, opt: OptimizationParams,
+                        pipe: PipelineParams, cfg: RasterConfig,
+                        spatial_lr_scale: float, bg: torch.Tensor
+                        ) -> Tuple[TrainState, Dict[str, Any]]:
+    """One optimizer step over a rig of same-time cameras: one field
+    evaluation, ``len(cameras)`` rasterizations."""
+    cameras = list(cameras)
+    loss, aux, tree, tap = step_forward(state, cameras, stage,
+                                        active_sh_degree, hp, opt, pipe, cfg,
+                                        bg)
+    grads, tap_grad = step_gradients(loss, tree, tap)
+    return rig_update(state, grads, tap_grad, loss.detach(), aux,
+                      len(cameras), opt, spatial_lr_scale), aux
+
+
 def _pool_rows(state: TrainState) -> Dict[str, Tuple[torch.Tensor, ...]]:
     return {name: (state.adam.mu["pool"][name], state.adam.nu["pool"][name])
             for name in state.pool.param_dict()}
@@ -280,15 +376,18 @@ def _with_pool_rows(state: TrainState, pool: GaussianPool, rows,
 def densify_step(state: TrainState, generator: torch.Generator,
                  grad_threshold: float, opacity_threshold: float,
                  scene_extent: float, max_screen_size: Optional[float],
-                 opt: OptimizationParams, world_prune: Optional[bool] = None
+                 opt: OptimizationParams, world_prune: Optional[bool] = None,
+                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """Clone + split + prune with the Adam-row surgery (reference
-    train.py:489-516).  The split noise is drawn from ``generator``, which
-    lives on the pool's device.  Returns the new state (statistics zeroed)
-    and the info dict of 0-d tensors."""
+    train.py:489-516).  The split noise, two standard-normal [Nc, 3]
+    draws, is ``noise`` or else drawn from ``generator``, which lives on
+    the pool's device.  Returns the new state (statistics zeroed) and the
+    info dict of 0-d tensors."""
     pool = state.pool
-    noise = torch.randn((2,) + tuple(pool.xyz.shape), generator=generator,
-                        device=pool.xyz.device)
+    if noise is None:
+        noise = torch.randn((2,) + tuple(pool.xyz.shape), generator=generator,
+                            device=pool.xyz.device)
     new_pool, rows, stats, info = densify_and_prune(
         pool, _pool_rows(state), state.stats, (noise[0], noise[1]),
         grad_threshold, opacity_threshold, scene_extent, opt.percent_dense,

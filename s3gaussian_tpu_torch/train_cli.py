@@ -8,7 +8,8 @@
         --model_path out/ --eval_only
 
 It reads the clip, builds the pool from its LiDAR points and trains the
-two stages (coarse, then fine) one camera per step on the card, with
+two stages (coarse, then fine) on the card, one camera per step or, with
+``--multicam B``, a rig of B same-time cameras per step, with
 density control every ``densification_interval`` steps, the opacity
 reset, ``logger.json`` telemetry (every 100 steps, or ``S3G_LOG_EVERY``),
 training snapshots, checkpoints, a final PLY and the evaluation sweep
@@ -19,10 +20,10 @@ flags are those of ``train.py`` but ``--steps_per_dispatch`` (a scanned
 block of steps has no counterpart here) and the TPU-only fields of the
 config groups.
 
-Before it reads the scene it refuses, naming the ROADMAP.md item each
-waits for, every run that would reach code the port does not have yet:
-``--multicam > 1``, ``--batch_size > 1``, ``cull_before_deform`` and
-``big_budget > 0``.
+Before it reads the scene it refuses, naming the ROADMAP.md item it
+waits for, ``--batch_size B > 1`` where there are at least B devices
+(data parallelism); with fewer it prints ``train.py``'s note and trains
+with batch size 1, as ``train.py`` does.
 """
 
 from __future__ import annotations
@@ -53,18 +54,22 @@ from s3gaussian_tpu_torch.train.trainer import (densify_schedule,
                                                 densify_step, init_state,
                                                 opacity_reset_step,
                                                 probe_pool, reinit_optimizer,
-                                                train_step)
+                                                train_step,
+                                                train_step_multicam)
 
 MID_EVAL_ITER = 30000
 
 
 def auto_max_visible(points, cams, capacity: int, growth: float = 2.0,
-                     lane: int = 2048) -> int:
+                     lane: int = 2048, group_by_frame: bool = False) -> int:
     """``--max_visible 0``: ``growth`` x the largest per-camera count of
     init points in the frustum (depth > 0.2, the projector's 1.3·tan(fov/2)
-    clamp as its edge), lane-rounded and clamped to the pool capacity."""
+    clamp as its edge), lane-rounded and clamped to the pool capacity.
+    With ``group_by_frame`` (rig steps) the count is that of the union
+    of each frame's cameras, as one cull serves the whole rig."""
     pts = np.ascontiguousarray(np.asarray(points, np.float32))
     best = 0
+    union = {}
     for cam in cams:
         view = cam.world_view.cpu().numpy()
         p = pts @ view[:3, :3] + view[3, :3]
@@ -72,9 +77,29 @@ def auto_max_visible(points, cams, capacity: int, growth: float = 2.0,
         tx = 1.3 * np.tan(0.5 * cam.fovx)
         ty = 1.3 * np.tan(0.5 * cam.fovy)
         vis = (z > 0.2) & (np.abs(p[:, 0]) < tx * z) & (np.abs(p[:, 1]) < ty * z)
-        best = max(best, int(vis.sum()))
+        if group_by_frame:
+            k = int(cam.frame_idx)
+            union[k] = vis if k not in union else union[k] | vis
+        else:
+            best = max(best, int(vis.sum()))
+    if group_by_frame:
+        best = max(int(v.sum()) for v in union.values())
     nr = int(np.ceil(growth * best / lane)) * lane
     return max(lane, min(nr, capacity))
+
+
+def group_by_time(cams) -> list:
+    """Indices of the cameras grouped by time (to 1e-6), in first-seen
+    order: the rigs of ``--multicam`` (train.py's ``group_by_time``)."""
+    by_t = {}
+    for i, c in enumerate(cams):
+        by_t.setdefault(round(float(c.time), 6), []).append(i)
+    return list(by_t.values())
+
+
+def device_count(device: torch.device) -> int:
+    """Devices a data-parallel run could use: the CUDA cards, or 1."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def make_deformation(hyper: ModelHiddenParams, seed: int,
@@ -84,21 +109,14 @@ def make_deformation(hyper: ModelHiddenParams, seed: int,
                             device)
 
 
-def not_ported(opt: OptimizationParams,
-               cfg: RasterConfig) -> Optional[str]:
+def not_ported(opt: OptimizationParams, n_devices: int) -> Optional[str]:
     """What of this run the port does not have yet, with the ROADMAP.md
-    item it waits for; None if the whole run is ported."""
-    if opt.multicam > 1:
-        return "--multicam > 1 waits for rig batching (ROADMAP.md §1 item 4)"
-    if opt.batch_size > 1:
+    item it waits for; None if the whole run is ported.  ``--batch_size``
+    beyond the devices falls back to 1, as in train.py, so only a data-
+    parallel run that could use its devices waits."""
+    if 1 < opt.batch_size <= n_devices:
         return ("--batch_size > 1 waits for data parallelism (ROADMAP.md §1 "
                 "item 5)")
-    if cfg.cull_before_deform:
-        return ("cull_before_deform waits for take_compact (ROADMAP.md §1 "
-                "item 1)")
-    if cfg.big_budget > 0:
-        return ("big_budget > 0 waits for two-class pair emission "
-                "(ROADMAP.md §1 item 1)")
     return None
 
 
@@ -139,9 +157,13 @@ def main(argv=None, device: str = "cuda"):
     cfg = extract_group(RasterConfig, args)
     if args.configs:
         apply_config_file(args.configs, model, pipe, opt, hyper, cfg)
-    why = not_ported(opt, cfg)
+    n_dev = device_count(torch.device(device))
+    why = not_ported(opt, n_dev)
     if why:
         raise SystemExit(f"train_cli: not ported yet: {why}")
+    if opt.batch_size > 1:
+        print(f"batch_size={opt.batch_size} needs >= that many devices "
+              f"(have {n_dev}); falling back to batch_size=1")
     snapshots = (model.render_process and not args.bench_iters
                  and not args.eval_only)
     if snapshots and importlib.util.find_spec("PIL") is None:
@@ -181,7 +203,8 @@ def main(argv=None, device: str = "cuda"):
     if cfg.max_visible == 0:
         cfg.max_visible = auto_max_visible(scene.info.points,
                                            scene.get_train_cameras(),
-                                           scene.pool.capacity)
+                                           scene.pool.capacity,
+                                           group_by_frame=opt.multicam > 1)
         print(f"auto-sized max_visible = {cfg.max_visible}")
 
     start_stage, start_iter = "coarse", 0
@@ -245,12 +268,34 @@ def main(argv=None, device: str = "cuda"):
                 random.shuffle(stack)
             return cams[stack.pop()]
 
+        # --multicam B: a rig of B same-time cameras per step, drawn from
+        # the seeded `random` in train.py's order
+        mc = max(int(opt.multicam), 0)
+        groups = group_by_time(cams) if mc > 1 else []
+        gstack = []
+
+        def pop_group():
+            nonlocal gstack
+            if not gstack:
+                gstack = list(range(len(groups)))
+                random.shuffle(gstack)
+            g = groups[gstack.pop()]
+            idx = (random.sample(g, mc) if len(g) >= mc
+                   else random.choices(g, k=mc))
+            return [cams[i] for i in idx]
+
         iteration = first_iter
         while iteration <= final_iter:
             if iteration % 1000 == 0:
                 active_sh = min(active_sh + 1, model.sh_degree)
-            state, aux = train_step(state, pop_cam(), stage, active_sh, hyper,
-                                    opt, pipe, cfg, scene.cameras_extent, bg)
+            if mc > 1:
+                state, aux = train_step_multicam(
+                    state, pop_group(), stage, active_sh, hyper, opt, pipe,
+                    cfg, scene.cameras_extent, bg)
+            else:
+                state, aux = train_step(state, pop_cam(), stage, active_sh,
+                                        hyper, opt, pipe, cfg,
+                                        scene.cameras_extent, bg)
             n_done += 1
 
             if iteration % log_every == 0 or iteration == first_iter:

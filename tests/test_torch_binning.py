@@ -83,7 +83,22 @@ def test_depth_key_bits_match_jax():
 
 
 def test_two_class_emission_raises():
-    _, tproj, _, top = _projected(50, 1, 64, 64, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbin.make_pair_keys(tproj, 4, 4, 64, 4, 4, 16, 16, opacities=top,
-                            big_budget=8)
+    """Two-class emission (big_budget > 0), once refused here, emits
+    JAX's pairs in the two-key layout (>= 4,095 tiles) too: the tile and
+    full depth bits of each slot, the granted bigs and their ranks."""
+    gx = gy = 64
+    proj, tproj, op, top = _projected(200, 0, 256, 256, 4)
+    pk = jbin.make_pair_keys(proj, gx, gy, 256, 8, 8, 4, 4, opacities=op,
+                             big_budget=32)
+    tpk = tbin.make_pair_keys(tproj, gx, gy, 256, 8, 8, 4, 4,
+                              opacities=top, big_budget=32)
+    assert tpk.two_key and pk.two_key
+    tile_j = np.asarray(pk.tile_u32).astype(np.int64)
+    tile_j[tile_j == 0xFFFFFFFF] = tbin.INVALID_TILE_TWO_KEY
+    want = (tile_j << 32) | np.asarray(pk.depth_u32).astype(np.int64)
+    np.testing.assert_array_equal(tpk.keys.numpy(), want)
+    for k in ("big_sel", "big_granted", "big_rank"):
+        np.testing.assert_array_equal(getattr(tpk, k).numpy(),
+                                      np.asarray(getattr(pk, k)), err_msg=k)
+    assert int(tpk.overflow_rect) == int(pk.overflow_rect)
+    assert int(np.asarray(pk.big_granted).sum()) > 0

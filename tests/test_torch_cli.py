@@ -10,7 +10,19 @@ Up to the first densify (coarse step 4) the two runs see the same cameras
 it the split noise differs (``jax.random`` against a ``torch.Generator``).
 The logger keys, ``cameras.json`` and the ``cfg_args`` fields match; the
 port resumes from its own checkpoint, transplants a prior field across
-pool capacities, and refuses at startup every run it cannot finish.
+pool capacities, refuses at startup a data-parallel run it cannot do,
+and falls back to batch size 1 where the devices are fewer than
+``--batch_size``, as ``train.py`` does.
+
+Two more pairs of runs: the reference's density control past a short
+opacity-reset interval (the 20-px screen prune on), with the port's
+``densify_step`` fed the JAX CLI's split draws, gives the same densify
+counts and alive count at every step of both stages; and
+``arguments/waymo_perf.py``'s flags (a 3-camera rig a step, the
+pre-deformation cull, the auto-sized budget) give the same auto-sized
+``max_visible`` and losses up to the first densify (rtol 1e-4).  The
+port alone runs the preset file itself with the default model through
+both stages and the final sweep.
 
 A second port run, with no eval flag, ``--stride 2`` and the mid-training
 sweep moved to fine step 3, ends in the evaluation sweep (metrics JSONs
@@ -20,6 +32,8 @@ a model path without a checkpoint refuses.
 """
 
 import ast
+import contextlib
+import io
 import json
 import os
 import sys
@@ -37,6 +51,7 @@ from s3gaussian_tpu.config import PipelineParams as JPipe
 from s3gaussian_tpu.models.deformation import init_deformation
 from s3gaussian_tpu_torch import train_cli
 from s3gaussian_tpu_torch.config import ModelHiddenParams as THP
+from s3gaussian_tpu_torch.train import trainer as ttr
 from s3gaussian_tpu_torch.weights import deformation_from_numpy
 
 from waymo_fixture import make_fixture
@@ -77,6 +92,13 @@ def jax_hp():
     return hp
 
 
+def same_field(hyper, seed, device):
+    """The port's make_deformation giving the JAX CLI's initial field."""
+    field = jax.tree_util.tree_map(
+        np.asarray, init_deformation(jax.random.PRNGKey(seed), jax_hp()))
+    return deformation_from_numpy(field, hyper, device)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both CLIs once, with S3G_LOG_EVERY=1: (clip, jax out, port out)."""
@@ -86,15 +108,11 @@ def runs(tmp_path_factory):
     sys.path.insert(0, REPO)
     import train as jax_cli
 
-    field = jax.tree_util.tree_map(
-        np.asarray, init_deformation(jax.random.PRNGKey(SEED), jax_hp()))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("S3G_LOG_EVERY", "1")
         jax_cli.main(["-s", src, "--model_path", jout, "--seed", str(SEED)]
                      + JAX_ARGV)
-        mp.setattr(train_cli, "make_deformation",
-                   lambda hyper, seed, device: deformation_from_numpy(
-                       field, hyper, device))
+        mp.setattr(train_cli, "make_deformation", same_field)
         state = train_cli.main(["-s", src, "--model_path", tout, "--seed",
                                 str(SEED)] + ARGV, device="cpu")
     return src, jout, tout, state
@@ -211,20 +229,224 @@ def test_prior_checkpoint_transplants_across_capacities(runs, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--multicam", "3"], "item 4"),
     (["--batch_size", "2"], "item 5"),
-    (["--skip_final_eval", "--bench_iters", "5", "--cull_before_deform"],
-     "item 1"),
-    (["--skip_final_eval", "--bench_iters", "5", "--big_budget", "64"],
-     "item 1"),
 ])
-def test_unported_runs_are_refused_at_startup(tmp_path, flags, item):
-    # the source does not exist: a refusal must come before the reader
+def test_unported_runs_are_refused_at_startup(tmp_path, monkeypatch, flags,
+                                              item):
+    # a data-parallel run is refused where there are enough devices for
+    # it (two here); the source does not exist: a refusal must come
+    # before the reader
+    monkeypatch.setattr(train_cli, "device_count", lambda device: 2)
     argv = ["-s", str(tmp_path / "no_clip"), "--model_path",
             str(tmp_path / "out")] + flags
     with pytest.raises(SystemExit, match=f"ROADMAP.md §1 {item}"):
         train_cli.main(argv, device="cpu")
     assert not os.path.exists(tmp_path / "out")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--multicam", "3"],
+    ["--skip_final_eval", "--bench_iters", "5", "--cull_before_deform"],
+    ["--skip_final_eval", "--bench_iters", "5", "--big_budget", "64"],
+])
+def test_rig_cull_and_two_class_runs_pass_the_startup_check(tmp_path,
+                                                            flags):
+    # the run gets past the check to the reader, which finds no clip
+    argv = ["-s", str(tmp_path / "no_clip"), "--model_path",
+            str(tmp_path / "out")] + flags
+    with pytest.raises(ValueError, match="Could not recognize scene type"):
+        train_cli.main(argv, device="cpu")
+    assert os.path.isdir(tmp_path / "out")
+
+
+def test_batch_size_beyond_the_devices_falls_back_to_one(runs, tmp_path,
+                                                         capsys):
+    """As train.py:216-219: with fewer devices than --batch_size the run
+    prints the note and trains with batch size 1, step for step the run
+    without the flag."""
+    src, _, tout, _ = runs
+    out = str(tmp_path / "bs2")
+    capsys.readouterr()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("S3G_LOG_EVERY", "1")
+        mp.setattr(train_cli, "make_deformation", same_field)
+        train_cli.main(["-s", src, "--model_path", out, "--seed", str(SEED),
+                        "--batch_size", "2"] + ARGV
+                       + ["--bench_iters", "2", "--iterations", "0"],
+                       device="cpu")
+    assert ("batch_size=2 needs >= that many devices (have 1); falling "
+            "back to batch_size=1") in capsys.readouterr().out
+
+    def coarse(log):
+        return [(l["step"], l["Loss"], l["point"]) for l in log
+                if l.get("stage") == "coarse" and "Loss" in l][:2]
+
+    assert coarse(read_log(out)) == coarse(read_log(tout))
+
+
+class JaxDraws:
+    """The port's ``densify_step`` fed the split noise the JAX CLI draws:
+    ``jax.random.PRNGKey(seed)`` anew each stage (the port's CLI makes a
+    new generator each stage), split once per densify, the two normals
+    of ``densify_and_prune`` from that key's split."""
+
+    def __init__(self, seed):
+        self.seed, self.gen, self.key = seed, None, None
+
+    def __call__(self, state, generator, *args, **kw):
+        if generator is not self.gen:
+            self.gen, self.key = generator, jax.random.PRNGKey(self.seed)
+        self.key, sub = jax.random.split(self.key)
+        shape = tuple(state.pool.xyz.shape)
+        noise = tuple(torch.from_numpy(np.array(jax.random.normal(k, shape)))
+                      for k in jax.random.split(sub))
+        return ttr.densify_step(state, generator, *args, noise=noise, **kw)
+
+
+def run_both(root, argv, jax_extra=(), draws=False):
+    """The JAX CLI and the port's on a fresh fixture clip with
+    S3G_LOG_EVERY=1 and the same initial field; the port's densify_step
+    gets the JAX CLI's split noise with ``draws``.  Returns (jax out,
+    port out, the printed output of each)."""
+    src = make_fixture(str(root / "clip"), n_frames=3)
+    jout, tout = str(root / "jax"), str(root / "port")
+    sys.path.insert(0, REPO)
+    import train as jax_cli
+
+    printed = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("S3G_LOG_EVERY", "1")
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            jax_cli.main(["-s", src, "--model_path", jout, "--seed",
+                          str(SEED)] + argv + list(jax_extra))
+        printed.append(buf.getvalue())
+        mp.setattr(train_cli, "make_deformation", same_field)
+        if draws:
+            mp.setattr(train_cli, "densify_step", JaxDraws(SEED))
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            train_cli.main(["-s", src, "--model_path", tout, "--seed",
+                            str(SEED)] + argv, device="cpu")
+        printed.append(buf.getvalue())
+    return jout, tout, printed
+
+
+# the fine-stage collapse check: the reference's density control with a
+# short opacity-reset interval, so the densifies past it (steps 4, 6, 8
+# of each stage) carry the 20-px screen prune, as the fine stage of a
+# long run does after its first reset
+COLLAPSE_ARGV = ["--num_pts", "500",
+                 "--coarse_iterations", "6", "--iterations", "8",
+                 "--densification_interval", "2", "--densify_from_iter", "1",
+                 "--opacity_reset_interval", "3",
+                 "--checkpoint_iterations", "99", "--skip_final_eval",
+                 "--max_visible", "2048", "--rect_w", "4", "--rect_h", "4",
+                 "--chunk", "32", "--load_h", "64", "--load_w", "96",
+                 "--configs", TINY]
+
+
+@pytest.fixture(scope="module")
+def collapse_runs(tmp_path_factory):
+    return run_both(tmp_path_factory.mktemp("collapse"), COLLAPSE_ARGV,
+                    ["--max_pairs_per_tile", "512"], draws=True)
+
+
+def test_density_control_past_the_reset_follows_the_reference(
+        collapse_runs):
+    """With the JAX CLI's split draws, the port's densify and prune
+    counts and its alive count equal the reference's at every step of
+    both stages, the screen prunes past the reset included."""
+    jout, tout, _ = collapse_runs
+    jlog, tlog = read_log(jout), read_log(tout)
+
+    def densifies(log):
+        return [(l["stage"], l["step"], l["densify"]) for l in log
+                if "densify" in l]
+
+    def alive(log):
+        return [(l["stage"], l["step"], l["point"]) for l in log
+                if "Loss" in l]
+
+    assert densifies(tlog) == densifies(jlog)
+    assert [(st, s) for st, s, _ in densifies(tlog)] == [
+        (st, s) for st in ("coarse", "fine") for s in (2, 4, 6)] + [
+        ("fine", 8)]
+    assert alive(tlog) == alive(jlog)
+    assert sum(d["n_prune_screen"] for _, s, d in densifies(tlog)) > 0
+    resets = [(l["stage"], l["step"]) for l in tlog if "opacity_reset" in l]
+    assert resets == [("coarse", 3), ("coarse", 6), ("fine", 3), ("fine", 6)]
+
+
+# arguments/waymo_perf.py's flags (its multicam_scan is TPU-only: the
+# JAX CLI alone gets it), with the fixture's cuts of ARGV
+WAYMO_PERF_ARGV = ["--multicam", "3", "--multicam_lr_scale", "1.0",
+                   "--cull_before_deform", "--max_visible", "0"] + [
+    a for a in ARGV if a not in ("--max_visible", "2048")]
+
+
+@pytest.fixture(scope="module")
+def waymo_perf_runs(tmp_path_factory):
+    return run_both(tmp_path_factory.mktemp("waymo_perf"), WAYMO_PERF_ARGV,
+                    ["--max_pairs_per_tile", "512", "--multicam_scan"])
+
+
+def test_waymo_perf_losses_match_up_to_the_first_densify(waymo_perf_runs):
+    jout, tout, (jprint, tprint) = waymo_perf_runs
+    jlog, tlog = read_log(jout), read_log(tout)
+
+    def losses(log):
+        return {l["step"]: l["Loss"] for l in log
+                if l.get("stage") == "coarse" and "Loss" in l
+                and l["step"] <= FIRST_DENSIFY}
+
+    want, got = losses(jlog), losses(tlog)
+    assert sorted(got) == sorted(want) == list(range(1, FIRST_DENSIFY + 1))
+    np.testing.assert_allclose([got[s] for s in sorted(got)],
+                               [want[s] for s in sorted(want)], rtol=1e-4)
+    first = [next(l["densify"] for l in log if "densify" in l)
+             for log in (tlog, jlog)]
+    assert first[0] == first[1]
+
+    def budget(text):
+        return [line for line in text.splitlines()
+                if line.startswith("auto-sized max_visible")]
+
+    assert budget(tprint) == budget(jprint) and len(budget(tprint)) == 1
+    # both stages ran to their ends, the fine one culled, no overflow
+    assert [l["step"] for l in tlog if l.get("stage") == "fine"
+            and "Loss" in l][-1] == 6
+    for line in tlog:
+        if "Loss" in line:
+            assert np.isfinite(line["Loss"]) and line["nan_skips"] == 0
+            assert line["ovf_pairs"] == 0 and line["ovf_vis"] == 0
+
+
+def test_waymo_perf_preset_trains_and_evaluates(tmp_path, capsys):
+    """The preset itself (``--configs arguments/waymo_perf.py``, the
+    default model) through both stages and the final sweep on the
+    fixture: 3-camera rig steps, the cull, the auto-sized budget."""
+    src = make_fixture(str(tmp_path / "clip"), n_frames=3)
+    out = str(tmp_path / "out")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("S3G_LOG_EVERY", "1")
+        state = train_cli.main(
+            ["-s", src, "--model_path", out, "--configs",
+             os.path.join(REPO, "arguments", "waymo_perf.py"),
+             "--num_pts", "500", "--pool_capacity", "4096",
+             "--coarse_iterations", "3", "--iterations", "3",
+             "--densification_interval", "2", "--densify_from_iter", "1",
+             "--checkpoint_iterations", "99", "--load_h", "64",
+             "--load_w", "96"], device="cpu")
+    assert "auto-sized max_visible = " in capsys.readouterr().out
+    log = read_log(out)
+    assert [(l["stage"], l["step"]) for l in log if "Loss" in l] == [
+        (st, i) for st in ("coarse", "fine") for i in (1, 2, 3)]
+    for line in log:
+        if "Loss" in line:
+            assert np.isfinite(line["Loss"]) and line["nan_skips"] == 0
+            assert line["ovf_pairs"] == 0 and line["ovf_vis"] == 0
+    assert sum("densify" in l for l in log) == 2
+    assert int(state.step) == 3 and int(state.adam.count) == 3
+    assert read_metrics(out, 3).keys() == {"train", "full"}
 
 
 # the eval run: no eval flag, a test split (--stride 2: frame 2 of 3),

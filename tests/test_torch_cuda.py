@@ -539,3 +539,163 @@ def test_cuda_render_multicam_equals_per_camera_renders(cuda_device):
                                            one[k].cpu().numpy(), rtol=1e-4,
                                            atol=5e-4, err_msg=k)
     assert int(rig["raster_aux"]["n_pairs"]) > 0
+
+
+# --- the cull, two-class emission and the rig step on the card ----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nr", [40, 90])     # below and above the visible
+def test_cuda_take_compact_matches_cpu(cuda_device, nr):
+    """Candidates, gather and rank backward on the card equal the CPU's
+    exactly."""
+    from s3gaussian_tpu_torch.ops.compact import candidates, take_compact
+
+    rng = np.random.default_rng(nr)
+    x = rng.normal(size=(100, 1, 3)).astype(np.float32)
+    vis = rng.random(100) < 0.6
+    g = rng.normal(size=(nr, 1, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        v = torch.tensor(vis, device=dev)
+        cand = candidates(v, nr)
+        y = take_compact(xt, cand, v)
+        (gx,) = torch.autograd.grad(y, [xt], torch.tensor(g, device=dev))
+        out[str(dev)] = [a.detach().cpu().numpy() for a in (cand, y, gx)]
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        np.testing.assert_array_equal(b, a)
+
+
+def frustum_inputs(seed, n, scale_range):
+    rng = np.random.default_rng(seed)
+    tan = math.tan(0.5)
+    z = rng.uniform(1.5, 8.0, n)
+    means = np.stack([rng.uniform(-0.9, 0.9, n) * tan * z,
+                      rng.uniform(-0.9, 0.9, n) * tan * z, z], 1)
+    q = rng.normal(size=(n, 4))
+    return [np.asarray(a, np.float32) for a in (
+        means, rng.uniform(*scale_range, (n, 3)),
+        q / np.linalg.norm(q, axis=1, keepdims=True),
+        rng.uniform(0.2, 0.95, n), rng.random((n, 3)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [512, 16])     # all bigs granted; demoted
+def test_cuda_two_class_rasterize_matches_cpu(cuda_device, budget):
+    """rasterize with two-class emission on the card (the CUDA
+    compositors) against the CPU (the plain ones): forward at the
+    compositor tolerances, every input gradient atol 2e-5·max|CPU| rtol
+    2e-4, the counters exact."""
+    from s3gaussian_tpu_torch.ops.rasterizer import rasterize
+
+    arrays = frustum_inputs(3, 600, (0.02, 0.4))
+    tan = math.tan(0.5)
+    view = np.eye(4, dtype=np.float32)
+    full = view @ projection_matrix(0.01, 100.0, 1.0, 1.0).T
+    cfg = RasterConfig(tile_x=8, tile_y=8, max_visible=600, rect_w=8,
+                       rect_h=8, big_budget=budget, pair_budget=1 << 20)
+    tgt = np.random.default_rng(0).random((3, H, W)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        def t(x):
+            return torch.tensor(np.asarray(x, np.float32), device=dev)
+        leaves = [t(a).requires_grad_(True) for a in arrays]
+        means, scales, quats, opac, colors = leaves
+        settings = RasterSettings(H, W, tan, tan, t(np.zeros(3)), 1.0,
+                                  t(view), t(full), 0, t(np.zeros(3)))
+        before = tk.bwd_launches
+        color, radii, depth, aux = rasterize(settings, means, opac,
+                                             scales=scales, rotations=quats,
+                                             colors_precomp=colors, cfg=cfg)
+        loss = ((color - t(tgt)) ** 2).sum() + 0.1 * depth.sum()
+        grads = torch.autograd.grad(loss, leaves)
+        if str(dev) != "cpu":
+            assert tk.bwd_launches == before + 1
+        res[str(dev)] = ([x.detach().cpu().numpy() for x in
+                          (color, depth, radii) + grads],
+                         {k: int(aux[k]) for k in (
+                             "n_pairs", "overflow_rect", "overflow_pairs")})
+    (want, want_aux), (got, got_aux) = res["cpu"], res[str(cuda_device)]
+    assert got_aux == want_aux and want_aux["n_pairs"] > 0
+    if budget == 16:
+        assert want_aux["overflow_rect"] > 0
+    for name, a, b in zip(("color", "depth"), want, got):
+        np.testing.assert_allclose(b, a, atol=5e-4, rtol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(got[2], want[2])
+    for name, a, b in zip(("means", "scales", "quats", "opacity", "colors"),
+                          want[3:], got[3:]):
+        np.testing.assert_allclose(b, a, atol=2e-5 * np.abs(a).max(),
+                                   rtol=2e-4, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_culled_rig_step_matches_cpu(cuda_device):
+    """A rig step (3 yawed cameras at one time) with the union cull and
+    two-class emission on the card and on the CPU from one state: the
+    loss rtol 1e-4, each tensor's update atol 1e-3·max|update| rtol 1e-2
+    (chip_smoke.py's train-step tolerances), radii, visibility and
+    vis_count exact; one forward and one backward launch a camera."""
+    from s3gaussian_tpu_torch.config import (ModelHiddenParams,
+                                             OptimizationParams,
+                                             PipelineParams)
+    from s3gaussian_tpu_torch.data.cameras import make_camera
+    from s3gaussian_tpu_torch.models.deformation import DeformationField
+    from s3gaussian_tpu_torch.models.pool import create_from_pcd
+    from s3gaussian_tpu_torch.train.trainer import (init_state,
+                                                    train_step_multicam)
+
+    rng = np.random.default_rng(8)
+    n = 1500
+    ang = rng.uniform(0, 2 * np.pi, n)
+    rad = rng.uniform(2.0, 8.0, n)
+    pts = np.stack([rad * np.sin(ang), rng.uniform(-1.0, 1.0, n),
+                    rad * np.cos(ang)], 1).astype(np.float32)
+    cols = rng.random((n, 3)).astype(np.float32)
+    images = rng.random((3, H, W, 3)).astype(np.float32)
+    depths = rng.uniform(1, 8, (3, H, W)).astype(np.float32)
+    hp = ModelHiddenParams(net_width=16, multires=[1, 2],
+                           kplanes_config={"grid_dimensions": 2,
+                                           "input_coordinate_dim": 4,
+                                           "output_coordinate_dim": 8,
+                                           "resolution": [8, 8, 8, 5]})
+    cfg = RasterConfig(max_visible=1024, pair_budget=1 << 18, rect_w=8,
+                       rect_h=8, tile_x=8, tile_y=8, big_budget=128,
+                       cull_before_deform=True)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pool = create_from_pcd(pts, cols, 2048, device=dev)
+        state = init_state(pool, DeformationField(
+            hp, torch.Generator().manual_seed(0), dev),
+            torch.tensor([[9.0, 9.0, 9.0], [-9.0, -9.0, -9.0]], device=dev))
+        before = {k: v.detach().cpu().clone() for k, v in
+                  state.pool.param_dict().items()}
+        cams = []
+        for b, yaw in enumerate((-40.0, 0.0, 40.0)):
+            a = np.deg2rad(yaw)
+            R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                          [-np.sin(a), 0, np.cos(a)]])
+            cams.append(make_camera(R, np.zeros(3), 1.0, 0.8, W, H, time=0.4,
+                                    image=images[b], depth_map=depths[b],
+                                    device=dev))
+        launches = (tk.launches, tk.bwd_launches)
+        state, aux = train_step_multicam(state, cams, "fine", 3, hp,
+                                         OptimizationParams(),
+                                         PipelineParams(), cfg, 5.0,
+                                         torch.zeros(3, device=dev))
+        if str(dev) != "cpu":
+            assert (tk.launches - launches[0],
+                    tk.bwd_launches - launches[1]) == (3, 3)
+        out[str(dev)] = (aux, {k: v.detach().cpu() - before[k] for k, v in
+                               state.pool.param_dict().items()})
+    (want_aux, want), (got_aux, got) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_allclose(got_aux["metrics"]["loss"].item(),
+                               want_aux["metrics"]["loss"].item(), rtol=1e-4)
+    for k in ("radii", "visible", "vis_count"):
+        np.testing.assert_array_equal(got_aux[k].cpu().numpy(),
+                                      want_aux[k].numpy(), err_msg=k)
+    assert int(want_aux["visible"].sum()) < n      # the cull left rows out
+    for k, w in want.items():
+        w = w.numpy()
+        np.testing.assert_allclose(got[k].numpy(), w,
+                                   atol=1e-3 * np.abs(w).max(), rtol=1e-2,
+                                   err_msg=k)

@@ -373,9 +373,33 @@ def test_render_multicam_equals_per_camera_renders(scene):
 
 
 def test_render_multicam_refuses_cull_before_deform(scene):
-    _, _, _, tpool, tdeform = scene
-    cfg = RasterConfig(max_visible=CAP, cull_before_deform=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_render_multicam([_camera_pair(0.0, 0.5)[1]], tpool, tdeform,
-                          PipelineParams(), torch.from_numpy(BG),
-                          torch.from_numpy(AABB), 3, cfg=cfg)
+    """cull_before_deform, once refused here, renders the rig from the
+    union cull as JAX's unrolled loop does, with a budget below the
+    union so the candidate order decides the working set."""
+    jpool, jdeform, hp, tpool, tdeform = scene
+    cams = [_camera_pair(y, 0.4) for y in YAWS]
+    pipe = PipelineParams()
+    kw = dict(cull_before_deform=True, max_visible=192, cull_margin_px=8.0)
+    want = jax.jit(lambda c, p, d: j_render_multicam(
+        c, len(cams), p, d, hp, pipe, jnp.asarray(BG), jnp.asarray(AABB), 3,
+        cfg=JRasterConfig(**{**vars(J_CFG), **kw})))(
+            stack_cameras([c[0] for c in cams]), jpool, jdeform)
+    with torch.no_grad():
+        got = t_render_multicam(
+            [c[1] for c in cams], tpool, tdeform, pipe, torch.from_numpy(BG),
+            torch.from_numpy(AABB), 3,
+            cfg=RasterConfig(**{**vars(T_CFG), **kw}))
+    for k in ("render", "depth"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=5e-4, rtol=1e-4, err_msg=k)
+    np.testing.assert_array_equal(got["radii"].numpy(),
+                                  np.asarray(want["radii"]))
+    np.testing.assert_array_equal(got["alive_work"].numpy(),
+                                  np.asarray(want["alive_work"]))
+    ja, ta = want["raster_aux"], got["raster_aux"]
+    for k in ("visible", "vis_count"):
+        np.testing.assert_array_equal(ta[k].numpy(), np.asarray(ja[k]))
+    for k in ("n_pairs", "overflow_rect", "overflow_visible",
+              "overflow_pairs"):
+        assert int(ta[k]) == int(ja[k]), k
+    assert got["dx"].shape[0] == 192

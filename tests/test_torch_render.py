@@ -11,6 +11,8 @@ exact; dx/dshs atol 1e-5.  The hexplane runs in float32 here
 tolerance in test_torch_deformation.py.  Every tile stays far below the
 jnp oracle's max_pairs_per_tile cap."""
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -193,9 +195,23 @@ def test_render_pixels_frames(scene):
 
 
 def test_unported_options_raise(scene):
-    _, _, _, tpool, tdeform = scene
-    _, tc = _cameras(0.0, 0.5)
-    cfg = RasterConfig(max_visible=CAP, cull_before_deform=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_render(tc, tpool, tdeform, PipelineParams(), torch.zeros(3),
-                 torch.from_numpy(AABB), 3, stage="fine", cfg=cfg)
+    """cull_before_deform, once refused here, renders what JAX's culled
+    render gives, with a budget below the visible set."""
+    jpool, deform, hp, tpool, tdeform = scene
+    jc, tc = _cameras(0.0, 0.5)
+    kw = dict(cull_before_deform=True, max_visible=160, cull_margin_px=8.0)
+    cfg = dataclasses.replace(CFG, **kw)
+    want = j_render(jc, jpool, deform, hp, PipelineParams(), jnp.zeros(3),
+                    jnp.asarray(AABB), 3, stage="fine", return_dx=True,
+                    cfg=cfg)
+    with torch.no_grad():
+        got = t_render(tc, tpool, tdeform, PipelineParams(), torch.zeros(3),
+                       torch.from_numpy(AABB), 3, stage="fine",
+                       return_dx=True, cfg=cfg)
+    for k in ("render", "depth"):
+        _close(got[k], want[k], msg=k)
+    for k in ("radii", "alive_work"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    np.testing.assert_array_equal(got["raster_aux"]["visible"].numpy(),
+                                  np.asarray(want["raster_aux"]["visible"]))
+    _close(got["dx"], want["dx"], atol=1e-5, rtol=0, msg="dx")
