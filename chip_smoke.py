@@ -48,10 +48,11 @@ last line):
      emission (``big_budget`` 131,072), pair budget 2^23; a few rig
      steps: ms a step, cameras/s, peak memory, n_pairs, the working set,
      the overflow counters (pairs and visible gated at 0);
-  7. the training CLI, the main path: a synthetic Waymo-layout clip (10
-     frames x 3 cameras at 640x960, ground truth rendered from a known
-     street scene of ~344k Gaussians with the port's rasterizer, 60,000
-     LiDAR points a frame) under the ignored ``build/``, trained by
+  7. the training CLI, the main path: a synthetic Waymo-layout clip
+     written by ``tools/mini_clip.py::write_clip`` (10 frames x 3 cameras
+     at 640x960, ground truth rendered from its known street scene of
+     ~344k Gaussians with the port's rasterizer, 60,000 LiDAR points a
+     frame, ``gt_motion.json``) under the ignored ``build/``, trained by
      ``train_cli.main`` with the default model and optimizer and only
      depth and cadence cut (60 coarse + 120 fine steps, density control
      every 20, opacity reset every 60): every logged loss finite, no
@@ -78,12 +79,24 @@ last line):
      of 3 cameras, the cull, the auto-sized ``max_visible``) and its
      final eval sweep: phase 7's gates with 3 forward and 3 backward
      launches a rig step, the printed budget and ``check_sweep``'s
-     gates; it/s and cameras/s per stage.
+     gates; it/s and cameras/s per stage;
+ 10. the offline tools on phase 7's model path: ``tools/eval_per_view``
+     (its mean PSNR equals the final sweep's train-split mean within
+     1e-4; one forward launch a camera and two flow renders),
+     ``tools/eval_flow_epe`` (finite EPE at every probe frame and offset)
+     and ``tools/metrics.py`` on a ``test/<method>/{renders,gt}``
+     directory written from the sweep's train-split frames (finite PSNR
+     and SSIM, one entry a view, LPIPS null without VGG weights);
+ 11. ``python -m s3gaussian_tpu_torch.bench`` in a subprocess at its
+     defaults (bench.py's four workloads, 10 warm-up and 20 timed steps
+     each): the headline first and last, four detail lines without an
+     error, no dropped pair, finite losses, one forward and one backward
+     launch a camera of a step; its lines printed.
 
 Then the compositor launches of every phase that drives the port's
-paths (4, 5, 5b, 6c, 7, 8, 9; not the comparisons of 3, 6 and 6b), one
-JSON line with both kernels (their launches summed over those phases),
-the script's wall time, the card line, and last ``{"ok": true,
+paths (4, 5, 5b, 6c, 7, 8, 9, 10, 11; not the comparisons of 3, 6 and
+6b), one JSON line with both kernels (their launches summed over those
+phases), the script's wall time, the card line, and last ``{"ok": true,
 "device": {...}}``.  The port imports no jax; neither does this script.
 """
 
@@ -158,10 +171,11 @@ MAX_FLIPPED_PIXELS = 32
 # (csrc/composite_bwd.cu::warp_reduce_scatter)
 REDUCE_SHUFFLES = 12
 
-# phase 7: the clip (scripts/mini_clip.py's street scene at density 4,
-# its camera rig and poses) and the CLI's cuts, depth and cadence only
+# phase 7: the clip (tools/mini_clip.py's street scene at density 4, its
+# camera rig, poses and gt_motion.json) and the CLI's cuts, depth and
+# cadence only
 CLIP_FRAMES, CLIP_DENSITY, CLIP_LIDAR, CLIP_SEED = 10, 4.0, 60_000, 0
-CAM_YAWS = (0.0, 0.785, -0.785)
+CLIP_CAMS = 3                    # tools/mini_clip.py's CAM_YAWS
 CLI_COARSE, CLI_FINE, CLI_LOG_EVERY = 60, 120, 10
 CLI_DENSIFY_FROM, CLI_DENSIFY_EVERY, CLI_RESET, CLI_CKPT = 20, 20, 60, 100
 
@@ -206,25 +220,14 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-         "-i", "0"], capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip()
-
-
 def make_scene(torch, dev, n, cap, seed=0):
     """bench.py's "frustum" scene: LiDAR-like points in the view frustum,
     sized by create_from_pcd's 3-NN rule.  Returns the pool and the
     generator, advanced as bench.py's is before it draws the targets."""
+    from s3gaussian_tpu_torch.bench import cloud
     from s3gaussian_tpu_torch.models.pool import create_from_pcd
     rng = np.random.default_rng(seed)
-    tan = np.tan(0.5)
-    z = rng.uniform(1.0, 60.0, n)
-    pts = np.stack([rng.uniform(-0.9, 0.9, n) * tan * z,
-                    rng.uniform(-0.9, 0.9, n) * tan * z, z],
-                   1).astype(np.float32)
-    cols = rng.random((n, 3)).astype(np.float32)
+    pts, cols = cloud(n, "frustum", rng)
     return create_from_pcd(pts, cols, cap, device=dev), rng
 
 
@@ -587,161 +590,13 @@ def kernel_streams(torch, su):
             for name, pool in (("view", su.pool), ("high_opacity", hi_pool))}
 
 
-def gt_scene(rng, density, n_ground=48_000, n_build=32_000, n_car=6_000):
-    """The street of ``scripts/mini_clip.py::gt_scene`` (default car
-    options), in the world (= frame-0 ego) frame, x forward, y left, z up:
-    a checkered ground plane, building facades on both sides and three
-    car clusters driving along x.  ``density`` scales the counts and the
-    splat sigma by 1/sqrt(density)."""
-    n_ground = int(n_ground * density)
-    n_build = int(n_build * density)
-    n_car = int(n_car * density)
-    smul = float(density) ** -0.5
-    gx = rng.uniform(-5, 120, n_ground)
-    gy = rng.uniform(-12, 12, n_ground)
-    gz = rng.normal(0.0, 0.02, n_ground)
-    checker = ((np.floor(gx / 2) + np.floor(gy / 2)) % 2)
-    g_col = np.stack([0.25 + 0.4 * checker, 0.25 + 0.3 * checker,
-                      0.25 + 0.1 * checker], 1)
-    g_scale = np.full((n_ground, 3), 0.14 * smul)
-    g_scale[:, 2] = 0.02 * smul
-    bx = rng.uniform(0, 120, n_build)
-    side = np.sign(rng.uniform(-1, 1, n_build))
-    by = side * rng.uniform(13, 16, n_build)
-    bz = rng.uniform(0, 8, n_build)
-    hue = (np.floor(bx / 15) % 3)
-    b_col = np.clip(np.stack([0.3 + 0.2 * (hue == 0) + 0.25 * np.sin(bz / 3),
-                              0.3 + 0.2 * (hue == 1) + 0.1 * np.cos(bx / 7),
-                              0.3 + 0.2 * (hue == 2)], 1), 0, 1)
-    b_scale = np.full((n_build, 3), 0.16 * smul)
-    n_per = n_car // 3
-    vel = np.zeros((n_ground + n_build + n_per * 3, 3))
-    pts_c, col_c = [], []
-    for i, ((cx, cy), col, v) in enumerate(zip(
-            [(25, 4), (60, -4), (40, 0)],
-            [(0.8, 0.1, 0.1), (0.1, 0.2, 0.8), (0.9, 0.8, 0.2)],
-            [(4.0, 0.0), (-3.0, 0.0), (5.0, 0.0)])):       # m per frame
-        pts_c.append(np.stack([cx + rng.uniform(-2.2, 2.2, n_per),
-                               cy + rng.uniform(-1.0, 1.0, n_per),
-                               0.4 + rng.uniform(0, 1.4, n_per)], 1))
-        col_c.append(np.tile(np.asarray(col), (n_per, 1)))
-        lo = n_ground + n_build + i * n_per
-        vel[lo:lo + n_per, :2] = v
-    c_scale = np.full((n_per * 3, 3), 0.12 * smul)
-    pts = np.concatenate([np.stack([gx, gy, gz], 1),
-                          np.stack([bx, by, bz], 1)] + pts_c, 0)
-    n = len(pts)
-    quats = np.zeros((n, 4), np.float32)
-    quats[:, 0] = 1.0
-    return dict(pts=pts.astype(np.float32),
-                cols=np.concatenate([g_col, b_col] + col_c, 0).astype(
-                    np.float32),
-                scales=np.concatenate([g_scale, b_scale, c_scale], 0).astype(
-                    np.float32),
-                quats=quats, opac=np.full((n,), 0.9, np.float32),
-                vel=vel.astype(np.float32))
-
-
-def write_clip(torch, dev, out, scene, rng, n_frames, h, w, lidar_cap,
-               cfg=None, ego_step=2.0):
-    """The Waymo layout of ``scripts/mini_clip.py::write_clip``: calibration
-    at the original 1280x1920 scale, ego poses driving along x, LiDAR rows
-    sampled from the frame's Gaussian centres (the ground-label column is
-    left 0: the reader does not read it), ground-truth images rendered
-    from the known scene with the port's ``rasterize`` on ``dev`` and
-    written as PNG content under the reader's ``.jpg`` names, dynamic
-    masks and ``frame_info.json``.  Returns the renders' overflow counts
-    and the LiDAR rows written."""
-    from s3gaussian_tpu_torch.config import RasterConfig
-    from s3gaussian_tpu_torch.data.images import write_png
-    from s3gaussian_tpu_torch.data.waymo import OPENCV2DATASET, ORIGINAL_SIZE
-    from s3gaussian_tpu_torch.ops.rasterizer import RasterSettings, rasterize
-    from s3gaussian_tpu_torch.ops.transforms import (focal2fov,
-                                                     full_projection,
-                                                     projection_matrix)
-
-    for d in ("images", "intrinsics", "extrinsics", "ego_pose", "lidar",
-              "dynamic_masks"):
-        os.makedirs(os.path.join(out, d), exist_ok=True)
-    fx0 = fy0 = 2080.0
-    cx0, cy0 = ORIGINAL_SIZE[0][1] / 2, ORIGINAL_SIZE[0][0] / 2
-    cam_to_egos = []
-    for i, yaw in enumerate(CAM_YAWS):
-        np.savetxt(os.path.join(out, "intrinsics", f"{i}.txt"),
-                   np.array([fx0, fy0, cx0, cy0, 0, 0, 0, 0, 0]))
-        c, s = np.cos(yaw), np.sin(yaw)
-        c2e = np.array([[c, -s, 0, 1.5], [s, c, 0, 0.0],
-                        [0, 0, 1, 2.0], [0, 0, 0, 1.0]])
-        np.savetxt(os.path.join(out, "extrinsics", f"{i}.txt"), c2e)
-        cam_to_egos.append(c2e @ OPENCV2DATASET)
-    fx, fy = fx0 * w / ORIGINAL_SIZE[0][1], fy0 * h / ORIGINAL_SIZE[0][0]
-    fovx, fovy = focal2fov(fx, w), focal2fov(fy, h)
-    proj = projection_matrix(0.01, 100.0, fovx, fovy)
-    n = len(scene["pts"])
-    cfg = cfg or RasterConfig(max_visible=n, rect_w=6, rect_h=6,
-                              pair_budget=1 << 23)
-
-    def t_(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
-
-    scales, quats, opac, cols = (t_(scene[k]) for k in ("scales", "quats",
-                                                        "opac", "cols"))
-    moving = np.abs(scene["vel"]).sum(1) > 0
-    overflow = {"overflow_rect": 0, "overflow_visible": 0, "overflow_pairs": 0}
-    n_lidar = 0
-    for t in range(n_frames):
-        ego = np.eye(4)
-        ego[0, 3] = ego_step * t
-        np.savetxt(os.path.join(out, "ego_pose", f"{t:03d}.txt"), ego)
-        means_t = scene["pts"] + scene["vel"] * t
-        pts_ego = means_t - ego[:3, 3]
-        keep = np.where((pts_ego[:, 0] > -2) & (pts_ego[:, 0] < 80))[0]
-        sub = rng.choice(keep, min(lidar_cap, len(keep)), replace=False)
-        rows = np.zeros((len(sub), 10), np.float32)
-        rows[:, 3:6] = pts_ego[sub]
-        rows.tofile(os.path.join(out, "lidar", f"{t:03d}.bin"))
-        n_lidar += len(sub)
-        means = t_(means_t)
-        for ci in range(len(CAM_YAWS)):
-            c2w = ego @ cam_to_egos[ci]
-            w2c = np.linalg.inv(c2w)
-            settings = RasterSettings(
-                h, w, float(np.tan(fovx / 2)), float(np.tan(fovy / 2)),
-                torch.zeros(3, device=dev), 1.0, t_(w2c.T),
-                t_(full_projection(w2c, proj)), 0, t_(c2w[:3, 3]))
-            with torch.no_grad():
-                color, _, _, aux = rasterize(settings, means, opac,
-                                             scales=scales, rotations=quats,
-                                             colors_precomp=cols, cfg=cfg)
-            for k in overflow:
-                overflow[k] += int(aux[k])
-            img = torch.clamp(color, 0, 1).permute(1, 2, 0).cpu().numpy()
-            write_png(os.path.join(out, "images", f"{t:03d}_{ci}.jpg"),
-                      (img * 255).astype(np.uint8), level=1)
-            # dynamic mask: the moving centres projected, dilated to blobs
-            mask = np.zeros((h, w), np.uint8)
-            pc = w2c[:3, :3] @ means_t[moving].T + w2c[:3, 3:4]
-            ok = pc[2] > 0.2
-            u = (fx * pc[0][ok] / pc[2][ok] + w / 2).astype(int)
-            v = (fy * pc[1][ok] / pc[2][ok] + h / 2).astype(int)
-            inb = (u >= 0) & (u < w) & (v >= 0) & (v < h)
-            for du in range(-4, 5):
-                for dv in range(-4, 5):
-                    mask[np.clip(v[inb] + dv, 0, h - 1),
-                         np.clip(u[inb] + du, 0, w - 1)] = 255
-            write_png(os.path.join(out, "dynamic_masks", f"{t:03d}_{ci}.png"),
-                      mask, level=1)
-    with open(os.path.join(out, "frame_info.json"), "w") as f:
-        json.dump({"frames": n_frames, "source": "chip_smoke_synthetic"}, f)
-    return overflow, n_lidar
-
-
 def new_record():
     """What the hooks of ``cli_hooks`` record over one CLI run."""
     return {"reader_s": None, "scene": None, "densify_ms": [], "save_ms": [],
             "alloc": [], "evals": [], "splits": [], "rig_s": [], "flow_s": [],
             "video_s": [], "ovf": dict.fromkeys(SWEEP_OVERFLOW, 0),
-            "pair": None, "train_launches": None, "train_peak": None}
+            "pair": None, "train_launches": None, "train_peak": None,
+            "frames": None}
 
 
 @contextlib.contextmanager
@@ -818,6 +673,10 @@ def cli_hooks(torch, rec):
                        if isinstance(v, list)},
             "metrics": frames.get("metrics"),
             "per_view": frames.get("metrics_per_view")})
+        if rec["frames"] is None:
+            # the first split's frames and ground truth, for the offline
+            # metrics tool
+            rec["frames"] = {k: frames[k] for k in ("rgbs", "gt_rgbs")}
         return frames
 
     def timed_render(fn, times):
@@ -877,7 +736,7 @@ def check_sweep(torch, rec, out, step, card, tag):
     splits of the clip) and its printed numbers.  Returns {split:
     per-view metrics} and the sweep's compositor launches."""
     ev = rec["evals"][-1]
-    n_cams = CLIP_FRAMES * len(CAM_YAWS)
+    n_cams = CLIP_FRAMES * CLIP_CAMS
     check(ev["step"] == step and ev["stage"] == "fine",
           f"{tag}: sweep at {ev['stage']} {ev['step']}, not fine {step}")
     check(set(ev["results"]) == set(SWEEP_SPLITS),
@@ -1052,7 +911,9 @@ def cli_phase(torch, dev, card):
     state, the argv, the model path, the record of the hooks and (per-view
     metrics by split, the sweep's compositor launches)."""
     from s3gaussian_tpu_torch import train_cli
+    from s3gaussian_tpu_torch.config import RasterConfig
     from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.tools.mini_clip import gt_scene, write_clip
     from s3gaussian_tpu_torch.train import checkpoints as ckpt
     from s3gaussian_tpu_torch.utils.ply import read_ply
 
@@ -1060,16 +921,19 @@ def cli_phase(torch, dev, card):
     shutil.rmtree(root, ignore_errors=True)
     clip, out = os.path.join(root, "clip"), os.path.join(root, "out")
     t0 = time.time()
-    scene = gt_scene(np.random.default_rng(CLIP_SEED), CLIP_DENSITY)
-    overflow, n_lidar = write_clip(torch, dev, clip, scene,
-                                   np.random.default_rng(CLIP_SEED + 1),
-                                   CLIP_FRAMES, H, W, CLIP_LIDAR)
+    scene = gt_scene(np.random.default_rng(CLIP_SEED), density=CLIP_DENSITY)
+    # every Gaussian may be visible: no ground-truth render drops one
+    overflow, n_lidar = write_clip(
+        clip, scene, CLIP_FRAMES, H, W, np.random.default_rng(CLIP_SEED + 1),
+        lidar_cap=CLIP_LIDAR, cfg=RasterConfig(
+            max_visible=len(scene["pts"]), rect_w=6, rect_h=6,
+            pair_budget=1 << 23), device=dev)
     check(overflow["overflow_visible"] == overflow["overflow_pairs"] == 0,
           f"ground-truth renders overflowed their budgets: {overflow}")
-    print(f"clip: {CLIP_FRAMES} frames x {len(CAM_YAWS)} cameras {H}x{W}, "
+    print(f"clip: {CLIP_FRAMES} frames x {CLIP_CAMS} cameras {H}x{W}, "
           f"ground truth from {len(scene['pts'])} gaussians (density "
           f"{CLIP_DENSITY}; rects clamped to 6x6 tiles over the "
-          f"{CLIP_FRAMES * len(CAM_YAWS)} renders: "
+          f"{CLIP_FRAMES * CLIP_CAMS} renders: "
           f"{overflow['overflow_rect']}), {n_lidar} LiDAR points, written "
           f"in {time.time() - t0:.2f} s", flush=True)
     del scene
@@ -1177,7 +1041,7 @@ def cli_phase(torch, dev, card):
           == [f"chkpnt_fine_{CLI_FINE}"], "older checkpoints left")
     with open(os.path.join(out, "cameras.json")) as f:
         n_cams = len(json.load(f))
-    check(n_cams == CLIP_FRAMES * len(CAM_YAWS), f"cameras.json: {n_cams}")
+    check(n_cams == CLIP_FRAMES * CLIP_CAMS, f"cameras.json: {n_cams}")
     fine_alloc = [a for s, a in rec["alloc"] if s == "fine"]
     half = len(fine_alloc) // 2
     check(max(fine_alloc[half:]) <= (1 + ALLOC_GROWTH) * max(fine_alloc[:half]),
@@ -1415,13 +1279,9 @@ def street360(n, seed=0):
     """bench.py's street360 cloud: ``n`` LiDAR-like points around the ego
     (radius 2-60, height -1.5-6 in the camera frame), their colours, and
     the generator as bench.py leaves it before drawing its targets."""
+    from s3gaussian_tpu_torch.bench import cloud
     rng = np.random.default_rng(seed)
-    ang = rng.uniform(0, 2 * np.pi, n)
-    rad = rng.uniform(2.0, 60.0, n)
-    y = rng.uniform(-1.5, 6.0, n)
-    pts = np.stack([rad * np.sin(ang), y, rad * np.cos(ang)],
-                   1).astype(np.float32)
-    return pts, rng.random((n, 3)).astype(np.float32), rng
+    return (*cloud(n, "street360", rng), rng)
 
 
 def waymo_rig_phase(torch, dev, card):
@@ -1588,12 +1448,147 @@ def perf_cli_phase(torch, argv7, card):
     return launches, sweep
 
 
+def tools_phase(torch, out, rec7, card):
+    """Phase 10: the offline tools on phase 7's model path.
+    ``eval_per_view`` (every train view rendered again from the restored
+    checkpoint: its mean PSNR is the final sweep's train-split mean),
+    ``eval_flow_epe`` (finite EPE at every probe frame and offset) and
+    ``tools/metrics.py`` on a ``test/<method>/{renders,gt}`` directory
+    written from the sweep's train-split frames.  Returns the compositor
+    launches of the three."""
+    from s3gaussian_tpu_torch.data.images import write_png
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.tools import eval_flow_epe, eval_per_view
+    from s3gaussian_tpu_torch.tools import metrics as metrics_tool
+
+    n_views = CLIP_FRAMES * CLIP_CAMS
+    buf = io.StringIO()
+    tk.launches = tk.bwd_launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        pv = eval_per_view.main(["--model_path", out])
+    pv_s = time.time() - t0
+    sweep_mean = rec7["evals"][-1]["results"]["train"]["psnr"]
+    check(pv["n_views"] == n_views, f"eval_per_view: {pv['n_views']} views")
+    check(abs(pv["mean"] - sweep_mean) <= 1e-4,
+          f"eval_per_view mean psnr {pv['mean']} vs the final sweep's "
+          f"train-split {sweep_mean}")
+    # one render a camera (the rigs, no decomposition), two flow renders
+    check((tk.launches, tk.bwd_launches) == (3 * n_views, 0),
+          f"eval_per_view: {(tk.launches, tk.bwd_launches)} launches")
+
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        epe = eval_flow_epe.main(["--model_path", out])
+    epe_s = time.time() - t0
+    probes = [0, CLIP_FRAMES // 3, 2 * CLIP_FRAMES // 3]
+    want = {f"t{t}_off{o}" for t in probes for o in (1, 3)
+            if t + o < CLIP_FRAMES}
+    check(set(epe) == want, f"eval_flow_epe: entries {sorted(epe)}")
+    for key, r in epe.items():
+        check(all(isinstance(r[k], float) and math.isfinite(r[k])
+                  for k in ("epe_dynamic", "epe_static")),
+              f"eval_flow_epe {key}: {r}")
+
+    mroot = os.path.join(os.path.dirname(out), "metrics_tool")
+    shutil.rmtree(mroot, ignore_errors=True)
+    for sub, key in (("renders", "rgbs"), ("gt", "gt_rgbs")):
+        d = os.path.join(mroot, "test", "ours", sub)
+        os.makedirs(d)
+        for i, img in enumerate(rec7["frames"][key]):
+            img = np.asarray(img)
+            if img.dtype != np.uint8:
+                img = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+            write_png(os.path.join(d, f"{i:05d}.png"), img, level=1)
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        scores = metrics_tool.main(["-m", mroot])
+    m_s = time.time() - t0
+    res = scores[mroot]["ours"]
+    with open(os.path.join(mroot, "per_view.json")) as f:
+        per_view = json.load(f)["ours"]
+    check(all(math.isfinite(res[k]) for k in ("PSNR", "SSIM"))
+          and res["LPIPS"] is None,
+          f"metrics tool: {res} (LPIPS is null without VGG weights)")
+    check(all(len(per_view[k]) == n_views
+              and all(math.isfinite(v) for v in per_view[k].values())
+              for k in ("PSNR", "SSIM")),
+          f"metrics tool: per-view entries {[len(v) for v in per_view.values()]}")
+    launches = (tk.launches, tk.bwd_launches)
+    print(f"tools: eval_per_view {pv['n_views']} views in {pv_s:.2f} s, mean "
+          f"psnr {pv['mean']:.6f} (the final sweep's train split "
+          f"{sweep_mean:.6f}, gate 1e-4), median {pv['median']:.3f} p10 "
+          f"{pv['p10']:.3f} p90 {pv['p90']:.3f}; eval_flow_epe {len(epe)} "
+          f"entries in {epe_s:.2f} s: " + " ".join(
+              f"{k} dyn {r['epe_dynamic']:.4f} static {r['epe_static']:.4f}"
+              f" (n {r['n_dynamic']})" for k, r in sorted(epe.items()))
+          + f"; metrics.py on the sweep's {n_views} train frames in "
+          f"{m_s:.2f} s: PSNR {res['PSNR']:.4f} SSIM {res['SSIM']:.4f} "
+          f"LPIPS {res['LPIPS']}; {launches[0]} forward / {launches[1]} "
+          f"backward launches ({card})", flush=True)
+    return launches
+
+
+# per workload of the bench: (timed) launches of one step, forward and
+# backward: one a camera
+BENCH_LINES = {"detail": 1, "detail_multicam3": 3, "detail_waymo_scale": 1,
+               "detail_waymo_rig": 3}
+BENCH_TIMEOUT_S = 600
+
+
+def bench_phase(card):
+    """Phase 11: ``python -m s3gaussian_tpu_torch.bench`` in a subprocess
+    at its defaults: the headline and the three detail workloads of
+    bench.py.  Gates: the headline first and last on stdout, four detail
+    lines and no error, no dropped pair, a finite loss, one forward and one
+    backward launch a camera of a timed step.  Returns its compositor
+    launches and its lines."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "s3gaussian_tpu_torch.bench"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    run_s = time.time() - t0
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+    check(proc.returncode == 0, f"bench exited {proc.returncode}")
+    heads = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    details = {}
+    for line in proc.stderr.splitlines():
+        if line.startswith("{"):
+            details.update(json.loads(line))
+    check(len(heads) == 2 and heads[0]["metric"] == heads[1]["metric"]
+          == f"train_iters_per_sec_{H}x{W}_fine",
+          f"bench: headline lines {heads}")
+    check(list(details) == list(BENCH_LINES),
+          f"bench: detail lines {list(details)}")
+    launches = [0, 0]
+    for key, cams in BENCH_LINES.items():
+        d = details[key]
+        check("error" not in d, f"bench {key}: {d}")
+        check(d["overflow_pairs"] == 0 and math.isfinite(d["loss"]),
+              f"bench {key}: overflow {d['overflow_pairs']} loss {d['loss']}")
+        check(d["launches_per_step"] == [cams, cams],
+              f"bench {key}: {d['launches_per_step']} launches a step")
+        launches = [a + b for a, b in zip(launches, d["launches"])]
+    check(heads[1].get("rig_cams_per_s") == details["detail_waymo_rig"][
+        "cams_per_s"], f"bench: last headline {heads[1]}")
+    for line in heads[:1] + [{k: v} for k, v in details.items()] + heads[1:]:
+        print(f"bench: {json.dumps(line)}", flush=True)
+    scale = details["detail_waymo_scale"]
+    print(f"bench: {run_s:.1f} s in all; detail_waymo_scale (1.5 M, one "
+          f"camera, no cull) peak device memory {scale['peak_gib']} GiB, "
+          f"median step {scale['step_ms_median']} ms ({card})", flush=True)
+    return tuple(launches), heads + [details]
+
+
 T_START = time.time()
 
 
 def main() -> int:
     import torch
 
+    from s3gaussian_tpu_torch.bench import card_line
     from s3gaussian_tpu_torch.config import RasterConfig
     from s3gaussian_tpu_torch.device import configure_device
     from s3gaussian_tpu_torch.eval.video import render_pixels
@@ -1994,24 +1989,34 @@ def main() -> int:
     _, argv, out, rec7, (per_view7, sweep7) = cli_phase(torch, dev, card)
     metrics_on_card(torch, rec7, card)
     train7 = rec7["train_launches"]
-    del rec7
 
     # 8. --eval_only on phase 7's model path
     sweep8, _ = eval_only_phase(torch, argv, out, per_view7, card)
 
     # 9. the waymo_perf preset through the CLI on phase 7's clip
     train9, sweep9 = perf_cli_phase(torch, argv, card)
+
+    # 10. the offline tools on phase 7's model path
+    tools10 = tools_phase(torch, out, rec7, card)
+    del rec7
+    torch.cuda.empty_cache()
+
+    # 11. the bench, in a process of its own
+    bench11, _ = bench_phase(card)
     path = {"4 render path": render_launches, "5 training slice":
             train_launches, "5b rig step": rig_launches,
             "6c waymo rig": waymo_launches, "7 CLI training": train7,
             "7 final sweep": sweep7, "8 --eval_only sweep": sweep8,
-            "9 waymo_perf training": train9, "9 waymo_perf sweep": sweep9}
+            "9 waymo_perf training": train9, "9 waymo_perf sweep": sweep9,
+            "10 offline tools": tools10, "11 bench": bench11}
     main_launches = tuple(sum(v[i] for v in path.values()) for i in (0, 1))
     print("compositor launches, forward / backward: " + "; ".join(
         f"{k} {v[0]} / {v[1]}" for k, v in path.items())
         + f"; total {main_launches[0]} / {main_launches[1]}", flush=True)
     check(rig_launches[0] > 0 and waymo_launches[0] > 0 and train9[0] > 0,
           "a rig phase launched no kernel")
+    check(tools10[0] > 0 and bench11[0] > 0 and bench11[1] > 0,
+          "the tools or the bench launched no kernel")
     print(f"smoke run: {time.time() - T_START:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")

@@ -136,6 +136,19 @@ def load_checkpoint(path: str, template: TrainState
     return state, stage, int(it)
 
 
+def restore_latest(model_path: str, template: TrainState, who: str
+                   ) -> Tuple[TrainState, str, str, int]:
+    """The latest checkpoint under ``model_path`` loaded into
+    ``template``: (state, its path, stage, iteration).  Exits, naming
+    ``who``, where there is none: an evaluation never falls back to the
+    fresh initialisation."""
+    found = find_checkpoint(model_path)
+    if found is None:
+        raise SystemExit(f"{who}: no checkpoint under {model_path}")
+    state, stage, it = load_checkpoint(found[0], template)
+    return state, found[0], stage, it
+
+
 def transplant_deformation(path: str, state: TrainState) -> TrainState:
     """--prior_checkpoint: only the deformation field (hexplane and MLPs)
     of the checkpoint at ``path`` moves into ``state``'s field; the pool,

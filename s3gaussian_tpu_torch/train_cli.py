@@ -217,15 +217,9 @@ def main(argv=None, device: str = "cuda"):
         # --eval_only without an explicit checkpoint evaluates the model
         # trained in model_path (the reference restores before its sweep,
         # train.py:630-641), never the fresh init
-        found = ckpt.find_checkpoint(model.model_path)
-        if found is None:
-            raise SystemExit(
-                f"--eval_only: no checkpoint under {model.model_path} "
-                "(train first, or pass --start_checkpoint)")
-        state, start_stage, start_iter = ckpt.load_checkpoint(found[0],
-                                                              state)
-        print(f"--eval_only: restored {found[0]} ({start_stage}:"
-              f"{start_iter})")
+        state, path, start_stage, start_iter = ckpt.restore_latest(
+            model.model_path, state, "--eval_only")
+        print(f"--eval_only: restored {path} ({start_stage}:{start_iter})")
 
     def evaluate(stage, step, st):
         eval_dir = os.path.join(model.model_path, "eval")

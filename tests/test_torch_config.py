@@ -155,7 +155,9 @@ def test_merge_hparams_sets_only_known_keys():
 
 
 def _entry_points():
-    from s3gaussian_tpu_torch import train_cli, weights
+    from s3gaussian_tpu_torch import bench, train_cli, weights
+    from s3gaussian_tpu_torch.tools import (eval_flow_epe, eval_per_view,
+                                            metrics, mini_clip, trained)
     from s3gaussian_tpu_torch.data import (blender, cameras, colmap, scene,
                                            waymo)
     from s3gaussian_tpu_torch.models import deformation, hexplane, pool
@@ -174,7 +176,17 @@ def _entry_points():
             "read_blender_scene": blender.read_blender_scene,
             "load_scene": scene.load_scene,
             "load_ply_pool": checkpoints.load_ply_pool,
-            "train_cli.main": train_cli.main}
+            "train_cli.main": train_cli.main,
+            "bench.Workload": bench.Workload.__init__,
+            "bench.run_workload": bench.run_workload,
+            "bench.main": bench.main,
+            "mini_clip.write_clip": mini_clip.write_clip,
+            "mini_clip.main": mini_clip.main,
+            "metrics.evaluate": metrics.evaluate,
+            "metrics.main": metrics.main,
+            "eval_per_view.main": eval_per_view.main,
+            "eval_flow_epe.main": eval_flow_epe.main,
+            "trained.load_trained": trained.load_trained}
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))

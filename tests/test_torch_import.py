@@ -28,6 +28,10 @@ def test_every_port_module_imports_without_jax():
     assert "s3gaussian_tpu_torch.ops.compact" in mods
     for m in ("metrics", "lpips", "flow", "video", "visualization"):
         assert f"s3gaussian_tpu_torch.eval.{m}" in mods
+    assert "s3gaussian_tpu_torch.bench" in mods
+    for m in ("mini_clip", "metrics", "eval_per_view", "eval_flow_epe",
+              "trained"):
+        assert f"s3gaussian_tpu_torch.tools.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"       # any `import jax` raises
             "sys.modules['s3gaussian_tpu'] = None\n"

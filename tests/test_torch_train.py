@@ -209,8 +209,12 @@ def jax_state():
     pool.opacity = jnp.asarray(rng.normal(0.5, 1.0, (CAP, 1)), jnp.float32)
     pool.alive = pool.alive & jnp.asarray(rng.random(CAP) > 0.05)
     deform = init_deformation(jax.random.PRNGKey(1), J_HP)
-    state = jtr.init_state(pool, deform, jnp.asarray(AABB))
+    return mid_training(jtr.init_state(pool, deform, jnp.asarray(AABB)), rng)
 
+
+def mid_training(state, rng):
+    """A JAX ``state`` with random non-zero Adam moments, count 5, step 40
+    and non-zero statistics, drawn from ``rng``."""
     def noise(x, scale, positive=False):
         v = rng.normal(size=x.shape) * scale
         return jnp.asarray(np.abs(v) if positive else v, jnp.float32)
@@ -218,9 +222,10 @@ def jax_state():
     mu = jax.tree_util.tree_map(lambda x: noise(x, 1e-3), state.adam.mu)
     nu = jax.tree_util.tree_map(lambda x: noise(x, 1e-6, True),
                                 state.adam.nu)
-    stats = jtr.PoolStats(max_radii2d=noise(state.stats.denom, 3.0, True),
-                          xyz_grad_accum=noise(state.stats.denom, 1e-3, True),
-                          denom=jnp.asarray(rng.integers(0, 9, CAP),
+    d = state.stats.denom
+    stats = jtr.PoolStats(max_radii2d=noise(d, 3.0, True),
+                          xyz_grad_accum=noise(d, 1e-3, True),
+                          denom=jnp.asarray(rng.integers(0, 9, d.shape),
                                             jnp.float32))
     return dataclasses.replace(
         state, adam=joptim.AdamState(mu=mu, nu=nu,
