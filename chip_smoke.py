@@ -91,11 +91,30 @@ last line):
      defaults (bench.py's four workloads, 10 warm-up and 20 timed steps
      each): the headline first and last, four detail lines without an
      error, no dropped pair, finite losses, one forward and one backward
-     launch a camera of a step; its lines printed.
+     launch a camera of a step; its lines printed;
+ 12. data parallelism (``parallel/``), on the one card: (12a) NCCL at
+     world size 1 in this process, at the headline: one fine
+     ``parallel_train_step`` against ``train_step`` from one mid-training
+     state (phase 6's train-step tolerances), and the reduction's extra
+     ms (flattening and the all-reduce of its two buckets, CUDA events)
+     with each bucket's bytes; (12b) two rank processes sharing the card
+     over gloo (CUDA tensors staged through the host), at the headline:
+     cameras yawed -40/+40, 2 coarse + 3 fine ``parallel_train_step``s
+     and 3 ``parallel_train_step_multicam``s on a rig of 3 a rank, the
+     replicas' checksums equal after every step, rank 0's state after the
+     first fine step against a single-process emulation of the two
+     cameras' averaged step (phase 6's tolerances); ms a step and of the
+     all-reduce, bytes; (12c) the CLI with ``--batch_size 2`` on two gloo
+     ranks on phase 7's clip (20 coarse + 40 fine, density control from
+     10 every 20, no sweep): finite losses, one logger line a logged step
+     (rank 0 alone writes), no overflow, the densifies, one checkpoint
+     and one PLY, the replicas equal at the end; it/s per stage.  The
+     two-rank figures are labelled: two ranks sharing one card are not a
+     scaling figure.
 
 Then the compositor launches of every phase that drives the port's
-paths (4, 5, 5b, 6c, 7, 8, 9, 10, 11; not the comparisons of 3, 6 and
-6b), one JSON line with both kernels (their launches summed over those
+paths (4, 5, 5b, 6c, 7, 8, 9, 10, 11, 12a-c, the last two summed over
+both ranks; not the comparisons of 3, 6 and 6b), one JSON line with both kernels (their launches summed over those
 phases), the script's wall time, the card line, and last ``{"ok": true,
 "device": {...}}``.  The port imports no jax; neither does this script.
 """
@@ -105,6 +124,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -209,6 +229,15 @@ WAYMO_WARMUP, WAYMO_STEPS = 1, 3
 # phase 9: arguments/waymo_perf.py on phase 7's clip, depth cut further
 # (rig steps of 3 cameras), phase 7's cadence
 PERF_COARSE, PERF_FINE = 40, 80
+# phase 12: data parallelism on the one card.  12b: two gloo ranks at the
+# headline, rank r's camera yawed DP_YAWS[r] (a rig of YAWS_DEG at
+# DP_RIG_TIMES[r] for the rig steps); 12c: the CLI on phase 7's clip, depth
+# cut further, a densify under DP in each stage
+DP_WORLD, DP_REPS, DP_TIMEOUT_S = 2, 5, 300
+DP_COARSE, DP_FINE, DP_RIG_STEPS = 2, 3, 3
+DP_YAWS, DP_RIG_TIMES = (-40.0, 40.0), (0.4, 0.6)
+DP_CLI_COARSE, DP_CLI_FINE, DP_CLI_DENSIFY_FROM = 20, 40, 10
+DP_LABEL = "two ranks sharing one card, gloo: not a scaling figure"
 
 
 class SmokeFailure(Exception):
@@ -1582,6 +1611,408 @@ def bench_phase(card):
     return tuple(launches), heads + [details]
 
 
+def dp_world_of_one_phase(torch, dev, card):
+    """Phase 12a: NCCL at world size 1 in this process, at the headline:
+    one fine ``parallel_train_step`` and one ``train_step`` from one
+    mid-training state, held to phase 6's train-step tolerances (the
+    per-rank backward is not bit-deterministic); the step's extra cost
+    over ``train_step``, the flattening and the all-reduce of its two
+    buckets, timed with CUDA events on the step's own terms.  Returns the
+    DP step's compositor launches."""
+    import torch.distributed as dist
+
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.parallel import data_parallel as dp
+    from s3gaussian_tpu_torch.parallel.multihost import init_multihost
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    root = os.path.join(REPO, "build", "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    check(init_multihost("file://" + os.path.join(root, "store_12a"), 1, 0,
+                         device="cuda") == (0, 1), "12a: world of one")
+    try:
+        check(dist.get_backend() == "nccl",
+              f"12a: backend {dist.get_backend()}")
+        su = headline(torch, dev)
+        state = mid_training(torch, tr.init_state(su.pool, su.deform,
+                                                  su.aabb), 12)
+        start = {k: v.cpu() for k, v in snapshot(torch, state).items()}
+        s_one = state_to(torch, state, dev)
+        cam = rig_camera(torch, dev, 0.0, 0.4, H, W, su.gt, su.gt_depth)
+        args = ("fine", 3, su.hp, su.opt, su.pipe, su.cfg, SPATIAL_LR_SCALE,
+                su.bg)
+        s_one, aux_one = tr.train_step(s_one, cam, *args)
+        tk.launches = tk.bwd_launches = 0
+        state, aux = dp.parallel_train_step(state, cam, *args)
+        torch.cuda.synchronize()
+        launches = (tk.launches, tk.bwd_launches)
+        check(launches == (1, 1), f"12a: {launches} launches for one camera")
+        lg, lc, worst, acc_err = compare_step(
+            torch, start, state_to(torch, state, "cpu"),
+            state_to(torch, s_one, "cpu"), aux, aux_one, "12a DP step")
+        del s_one, aux_one
+        # the reduction alone, on a step's terms
+        loss, aux2, tree, tap = tr.step_forward(state, cam, "fine", 3, su.hp,
+                                                su.opt, su.pipe, su.cfg,
+                                                su.bg)
+        grads, tap_grad = tr.step_gradients(loss, tree, tap)
+        sums, maxes = dp.step_buckets(
+            grads, torch.linalg.norm(tap_grad[..., :2], dim=-1),
+            aux2["visible"].to(torch.float32), loss.detach(), aux2)
+        ms = []
+        for _ in range(DP_REPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            dp.all_reduce_buckets(sums, maxes)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+    finally:
+        dist.destroy_process_group()
+    print(f"12a: NCCL at world size 1, headline ({N_GAUSSIANS} in "
+          f"{CAPACITY}, {H}x{W}, default field), one fine parallel_train_step "
+          f"vs train_step from one mid-training state: loss {lg:.6f} vs "
+          f"{lc:.6f}, worst update error {worst:.3e} of its tensor's largest "
+          f"update, xyz_grad_accum max abs err {acc_err:.3e}; {launches[0]} "
+          f"forward / {launches[1]} backward launches", flush=True)
+    print(f"12a: the DP step's extra cost over train_step, flattening + "
+          f"NCCL all-reduce of its two buckets (CUDA events, median of "
+          f"{DP_REPS}): {np.median(ms):.3f} ms (" + " ".join(
+              f"{x:.3f}" for x in ms) + f"); SUM bucket {len(sums)} "
+          f"tensors, {bucket_bytes(sums)} bytes float32; MAX bucket "
+          f"{len(maxes)} tensors, {bucket_bytes(maxes)} bytes int32; "
+          f"world size 1: not a scaling figure ({card})", flush=True)
+    return launches
+
+
+def bucket_bytes(terms) -> int:
+    """Bytes one all-reduce bucket carries (4 a value: float32 or int32)."""
+    return 4 * sum(t.numel() for t in terms.values())
+
+
+@contextlib.contextmanager
+def timed_reductions(torch, rec):
+    """Host-clock ms (synchronised) and bytes of every
+    ``all_reduce_buckets`` call while it is active, appended to ``rec``."""
+    from s3gaussian_tpu_torch.parallel import data_parallel as dp
+
+    orig = dp.all_reduce_buckets
+
+    def timed(sums, maxes):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(sums, maxes)
+        torch.cuda.synchronize()
+        rec.append(((time.perf_counter() - t) * 1e3, bucket_bytes(sums),
+                    bucket_bytes(maxes)))
+        return out
+
+    dp.all_reduce_buckets = timed
+    try:
+        yield
+    finally:
+        dp.all_reduce_buckets = orig
+
+
+def emulate_dp_step(torch, state, cams, stage, su):
+    """One data-parallel step of ``cams`` (one a rank) in one process:
+    each camera's gradients from ``step_forward`` / ``step_gradients``,
+    averaged, the per-view statistics summed, then ``apply_param_update``
+    with the mean loss.  Returns the state and an aux with the loss."""
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    terms = []
+    for cam in cams:
+        loss, aux, tree, tap = tr.step_forward(state, cam, stage, 3, su.hp,
+                                               su.opt, su.pipe, su.cfg, su.bg)
+        grads, tap_grad = tr.step_gradients(loss, tree, tap)
+        terms.append((loss.detach(), aux, grads, tap_grad))
+    n = len(terms)
+    grads = {g: {k: sum(t[2][g][k] for t in terms) / n for k in d}
+             for g, d in terms[0][2].items()}
+    tap_term = sum(torch.linalg.norm(t[3][..., :2], dim=-1) for t in terms)
+    vis_count = sum(t[1]["visible"].to(torch.float32) for t in terms)
+    loss = sum(t[0] for t in terms) / n
+    radii = functools.reduce(torch.maximum, [t[1]["radii"] for t in terms])
+    visible = functools.reduce(torch.logical_or,
+                               [t[1]["visible"] for t in terms])
+    state = tr.apply_param_update(state, grads, tap_term, loss, radii,
+                                  visible, su.opt, SPATIAL_LR_SCALE,
+                                  vis_count=vis_count)
+    return state, {"metrics": {"loss": loss}}
+
+
+def dp_rank_steps(torch, dev, rank, root):
+    """Phase 12b, one rank: the headline (as 12a) from one mid-training
+    state, replicated from rank 0; 2 coarse + 3 fine
+    ``parallel_train_step``s on this rank's camera, then 3
+    ``parallel_train_step_multicam``s on its rig of 3, the replicas'
+    checksums compared after every step.  Rank 0 then holds its state
+    after the first fine step against ``emulate_dp_step`` of both
+    ranks' cameras from the state before it.  Returns the report."""
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.parallel import data_parallel as dp
+    from s3gaussian_tpu_torch.parallel.multihost import sync_hosts
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    su = headline(torch, dev)
+    state = dp.replicate_state(mid_training(
+        torch, tr.init_state(su.pool, su.deform, su.aabb), 12))
+    rep = {"agree": [], "step_ms": [], "rig_ms": [], "losses": [],
+           "reduce": []}
+
+    def step(fn, state, view, stage, key):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, aux = fn(state, view, stage, 3, su.hp, su.opt, su.pipe,
+                        su.cfg, SPATIAL_LR_SCALE, su.bg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rep[key].append(ev[0].elapsed_time(ev[1]))
+        loss = aux["metrics"]["loss"].item()
+        rep["losses"].append(loss)
+        check(math.isfinite(loss), f"12b rank {rank} {stage}: loss {loss}")
+        for k in ("overflow_pairs", "overflow_visible"):
+            check(int(aux[k]) == 0, f"12b rank {rank}: {k} {int(aux[k])}")
+        lo, hi = dp.replica_checksum_range(state)
+        rep["agree"].append(lo == hi)
+        return state, aux
+
+    cams = [[rig_camera(torch, dev, yaw, 0.4 + 1e-4 * i, H, W, su.gt,
+                        su.gt_depth) for yaw in DP_YAWS]
+            for i in range(DP_COARSE + DP_FINE)]
+    stages = ["coarse"] * DP_COARSE + ["fine"] * DP_FINE
+    tk.launches = tk.bwd_launches = 0
+    with timed_reductions(torch, rep["reduce"]):
+        for i, stage in enumerate(stages):
+            emulated = i == DP_COARSE and rank == 0
+            if emulated:
+                emul_start = state_to(torch, state, dev)
+                start = {k: v.cpu() for k, v in
+                         snapshot(torch, emul_start).items()}
+            state, aux = step(dp.parallel_train_step, state, cams[i][rank],
+                              stage, "step_ms")
+            if emulated:
+                after, after_aux = state_to(torch, state, "cpu"), aux
+        for j in range(DP_RIG_STEPS):
+            rig = [rig_camera(torch, dev, yaw, DP_RIG_TIMES[rank] + 1e-4 * j,
+                              H, W, su.gt, su.gt_depth) for yaw in YAWS_DEG]
+            state, _ = step(dp.parallel_train_step_multicam, state, rig,
+                            "fine", "rig_ms")
+    torch.cuda.synchronize()
+    rep["launches"] = (tk.launches, tk.bwd_launches)
+    want = DP_COARSE + DP_FINE + DP_RIG_STEPS * len(YAWS_DEG)
+    check(rep["launches"] == (want, want),
+          f"12b rank {rank}: {rep['launches']} launches, not {want} each")
+    check(int(state.nan_skips) == 0, f"12b rank {rank}: nan_skips")
+    if rank == 0:
+        emul, emul_aux = emulate_dp_step(torch, emul_start, cams[DP_COARSE],
+                                         "fine", su)
+        rep["emulation"] = compare_step(
+            torch, start, after, state_to(torch, emul, "cpu"), after_aux,
+            emul_aux, "12b rank 0 vs the single-process emulation")
+    sync_hosts("12b")
+    return rep
+
+
+def dp_rank_cli(torch, dev, rank, root):
+    """Phase 12c, one rank: ``train_cli.main`` with ``--batch_size 2``
+    (the group is up, so its ``init_multihost`` returns it).  Returns the
+    report: compositor launches and the final replicas' checksums."""
+    from s3gaussian_tpu_torch import train_cli
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.parallel import data_parallel as dp
+
+    with open(os.path.join(root, "argv_12c.json")) as f:
+        argv = json.load(f)
+    tk.launches = tk.bwd_launches = 0
+    t0 = time.time()
+    state = train_cli.main(argv)
+    torch.cuda.synchronize()
+    rep = {"launches": (tk.launches, tk.bwd_launches),
+           "s": time.time() - t0, "peak": torch.cuda.max_memory_allocated()}
+    rep["checksum"] = dp.replica_checksum_range(state)
+    return rep
+
+
+def dp_rank_main(mode, rank, root) -> int:
+    """A rank process of phase 12b (``steps``) or 12c (``cli``): it joins
+    the gloo group from ``S3G_COORDINATOR`` / ``S3G_NUM_PROCESSES`` /
+    ``S3G_PROCESS_ID`` on the card and writes its report as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from s3gaussian_tpu_torch.device import configure_device
+    from s3gaussian_tpu_torch.parallel.multihost import init_multihost
+
+    rank = int(rank)
+    dev = configure_device("cuda")
+    check(init_multihost(backend="gloo")
+          == (rank, DP_WORLD), "rank: process group")
+    try:
+        run = dp_rank_steps if mode == "steps" else dp_rank_cli
+        rep = run(torch, dev, rank, root)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"{mode}_rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def run_dp_ranks(mode, root):
+    """``DP_WORLD`` rank processes of ``mode`` on the card, meeting at a
+    file store under ``root``, each with its log there; fails if one
+    exits non-zero or outlasts ``DP_TIMEOUT_S``.  Returns their reports
+    and the wall seconds."""
+    store = "file://" + os.path.join(root, f"store_{mode}")
+    procs, logs = [], []
+    t0 = time.time()
+    try:
+        for r in range(DP_WORLD):
+            env = dict(os.environ, S3G_COORDINATOR=store,
+                       S3G_NUM_PROCESSES=str(DP_WORLD),
+                       S3G_PROCESS_ID=str(r),
+                       S3G_LOG_EVERY=str(CLI_LOG_EVERY))
+            logs.append(open(os.path.join(root, f"{mode}_rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                 mode, str(r), root], cwd=REPO, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, DP_TIMEOUT_S - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.time() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(root, f"{mode}_rank{r}.log")) as f:
+                print(f.read()[-6000:], file=sys.stderr, flush=True)
+        check(p.returncode == 0, f"12 {mode}: rank {r} exited "
+              f"{p.returncode} after {wall:.1f} s (killed at "
+              f"{DP_TIMEOUT_S} s)")
+    reports = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(root, f"{mode}_rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports, wall
+
+
+def dp_two_ranks_phase(card):
+    """Phase 12b: two ranks sharing the card over gloo (``dp_rank_steps``).
+    Returns the compositor launches of both ranks' DP steps."""
+    root = os.path.join(REPO, "build", "chip_smoke_dp")
+    reports, wall = run_dp_ranks("steps", root)
+    for r, rep in enumerate(reports):
+        check(all(rep["agree"]), f"12b: replica checksums differ after "
+              f"steps {[i for i, a in enumerate(rep['agree']) if not a]}")
+    check(reports[0]["losses"] == reports[1]["losses"],
+          "12b: the ranks' reduced losses differ")
+    lg, lc, worst, acc_err = reports[0]["emulation"]
+    print(f"12b: {DP_WORLD} gloo ranks on the card (CUDA tensors staged "
+          f"through the host), headline, cameras yawed {DP_YAWS}: "
+          f"{DP_COARSE} coarse + {DP_FINE} fine parallel_train_steps and "
+          f"{DP_RIG_STEPS} parallel_train_step_multicam on a rig of "
+          f"{len(YAWS_DEG)} a rank, replica checksums equal after all "
+          f"{len(reports[0]['agree'])} steps; rank 0 after the first fine "
+          f"step vs the single-process emulation: loss {lg:.6f} vs "
+          f"{lc:.6f}, worst update error {worst:.3e}, xyz_grad_accum max "
+          f"abs err {acc_err:.3e}; launches per rank "
+          f"{[tuple(r['launches']) for r in reports]}; {wall:.1f} s wall",
+          flush=True)
+    for r, rep in enumerate(reports):
+        red = rep["reduce"]
+        print(f"12b rank {r}: step ms (CUDA events) " + " ".join(
+            f"{x:.2f}" for x in rep["step_ms"]) + " | rig step ms "
+            + " ".join(f"{x:.2f}" for x in rep["rig_ms"])
+            + f"; all-reduce ms (host clock, synchronised, median of "
+            f"{len(red)}) {np.median([x[0] for x in red]):.2f}, bytes a "
+            f"step SUM {red[0][1]} (single) / {red[-1][1]} (rig), MAX "
+            f"{red[0][2]} ({DP_LABEL}; {card})", flush=True)
+    return tuple(sum(rep["launches"][i] for rep in reports) for i in (0, 1))
+
+
+def dp_cli_phase(clip, card):
+    """Phase 12c: ``train_cli.main`` with ``--batch_size 2`` on two gloo
+    ranks on phase 7's clip, depth cut to 20 coarse + 40 fine, density
+    control from step 10 every 20 (a densify under DP in each stage), no
+    sweep; one model path.  Gates: every logged loss finite, one logger
+    line a logged step (only rank 0 writes), no visible or pair overflow,
+    the densifies, one final checkpoint and one PLY, the replicas equal
+    at the end, one forward and one backward launch a step a rank.
+    Returns the compositor launches of both ranks."""
+    from s3gaussian_tpu_torch.utils.ply import read_ply
+
+    root = os.path.join(REPO, "build", "chip_smoke_dp")
+    out = os.path.join(root, "cli")
+    argv = ["-s", clip, "--model_path", out, "--seed", str(CLIP_SEED),
+            "--coarse_iterations", str(DP_CLI_COARSE),
+            "--iterations", str(DP_CLI_FINE),
+            "--densify_from_iter", str(DP_CLI_DENSIFY_FROM),
+            "--densification_interval", str(CLI_DENSIFY_EVERY),
+            "--opacity_reset_interval", str(CLI_RESET),
+            "--checkpoint_iterations", str(CLI_CKPT),
+            "--pair_budget", "4194304", "--batch_size", str(DP_WORLD),
+            "--skip_final_eval"]
+    with open(os.path.join(root, "argv_12c.json"), "w") as f:
+        json.dump(argv, f)
+    reports, wall = run_dp_ranks("cli", root)
+    log = read_logger(os.path.join(out, "logger.json"))
+    steps = [l for l in log if "Loss" in l]
+    for l in steps:
+        where = f"12c {l['stage']} step {l['step']}"
+        check(math.isfinite(l["Loss"]), f"{where}: Loss {l['Loss']}")
+        check(l["ovf_vis"] == l["ovf_pairs"] == 0,
+              f"{where}: overflow visible {l['ovf_vis']} pairs "
+              f"{l['ovf_pairs']}")
+        check(l["nan_skips"] == 0, f"{where}: nan_skips {l['nan_skips']}")
+    want_steps = [(stage, i) for stage, n in (("coarse", DP_CLI_COARSE),
+                                              ("fine", DP_CLI_FINE))
+                  for i in [1] + list(range(CLI_LOG_EVERY, n + 1,
+                                            CLI_LOG_EVERY))]
+    check([(l["stage"], l["step"]) for l in steps] == want_steps,
+          f"12c: logged steps {[(l['stage'], l['step']) for l in steps]} "
+          f"(one line a logged step, rank 0 alone)")
+    dens = [(l["stage"], l["step"]) for l in log if "densify" in l]
+    check(dens == [(stage, i) for stage, n in (("coarse", DP_CLI_COARSE),
+                                               ("fine", DP_CLI_FINE))
+                   for i in range(DP_CLI_DENSIFY_FROM + 1, n + 1)
+                   if i % CLI_DENSIFY_EVERY == 0],
+          f"12c: densifies at {dens}")
+    check(sorted(d for d in os.listdir(out) if d.startswith("chkpnt_"))
+          == [f"chkpnt_fine_{DP_CLI_FINE}"], "12c: checkpoints")
+    plys = os.listdir(os.path.join(out, "point_cloud"))
+    check(plys == [f"iteration_{DP_CLI_FINE}"], f"12c: PLYs {plys}")
+    n_ply = len(read_ply(os.path.join(out, "point_cloud", plys[0],
+                                      "point_cloud.ply"))["x"])
+    sums = [rep["checksum"] for rep in reports]
+    check(all(lo == hi for lo, hi in sums) and sums[0] == sums[1],
+          f"12c: final replica checksums {sums}")
+    want = DP_CLI_COARSE + DP_CLI_FINE
+    for r, rep in enumerate(reports):
+        check(tuple(rep["launches"]) == (want, want),
+              f"12c rank {r}: {rep['launches']} launches for {want} steps")
+    rates = {s: [l for l in steps if l["stage"] == s][-1]["it_per_s"]
+             for s in ("coarse", "fine")}
+    print(f"12c: train_cli.main({' '.join(argv[4:])}) on phase 7's clip, "
+          f"{DP_WORLD} gloo ranks, one model path: {len(steps)} logged "
+          f"steps, densifies at {dens}, {n_ply} Gaussians in the PLY, "
+          f"final replica checksums equal; it/s coarse {rates['coarse']} "
+          f"fine {rates['fine']} (rank 0's logger); rank seconds "
+          + " ".join(f"{rep['s']:.1f}" for rep in reports)
+          + f", peak " + " ".join(f"{rep['peak'] / 2 ** 30:.2f}"
+                                  for rep in reports)
+          + f" GiB; {wall:.1f} s wall ({DP_LABEL}; {card})", flush=True)
+    return tuple(sum(rep["launches"][i] for rep in reports) for i in (0, 1))
+
+
 T_START = time.time()
 
 
@@ -2003,12 +2434,23 @@ def main() -> int:
 
     # 11. the bench, in a process of its own
     bench11, _ = bench_phase(card)
+
+    # 12. data parallelism: NCCL at world size 1 here, then two gloo
+    # ranks sharing the card at the headline and through the CLI
+    t12 = time.time()
+    dp12a = dp_world_of_one_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+    dp12b = dp_two_ranks_phase(card)
+    dp12c = dp_cli_phase(argv[1], card)
+    print(f"12: data parallelism in {time.time() - t12:.1f} s", flush=True)
     path = {"4 render path": render_launches, "5 training slice":
             train_launches, "5b rig step": rig_launches,
             "6c waymo rig": waymo_launches, "7 CLI training": train7,
             "7 final sweep": sweep7, "8 --eval_only sweep": sweep8,
             "9 waymo_perf training": train9, "9 waymo_perf sweep": sweep9,
-            "10 offline tools": tools10, "11 bench": bench11}
+            "10 offline tools": tools10, "11 bench": bench11,
+            "12a NCCL world 1": dp12a, "12b two gloo ranks": dp12b,
+            "12c CLI two gloo ranks": dp12c}
     main_launches = tuple(sum(v[i] for v in path.values()) for i in (0, 1))
     print("compositor launches, forward / backward: " + "; ".join(
         f"{k} {v[0]} / {v[1]}" for k, v in path.items())
@@ -2017,6 +2459,8 @@ def main() -> int:
           "a rig phase launched no kernel")
     check(tools10[0] > 0 and bench11[0] > 0 and bench11[1] > 0,
           "the tools or the bench launched no kernel")
+    check(all(v[0] > 0 and v[1] > 0 for v in (dp12a, dp12b, dp12c)),
+          "a data-parallel phase launched no kernel")
     print(f"smoke run: {time.time() - T_START:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -2046,7 +2490,10 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--dp-rank"]:
+            code = dp_rank_main(*sys.argv[2:])
+        else:
+            code = main()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         code = 1

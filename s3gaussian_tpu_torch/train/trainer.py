@@ -321,22 +321,31 @@ def train_step(state: TrainState, camera: Camera, stage: str,
     return new_state, aux
 
 
+def rig_stats(tap_grad: torch.Tensor, aux: Dict[str, Any], n_cams: int,
+              opt: OptimizationParams
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The statistics terms of a rig step, (tap term, ``vis_count``):
+    with per-camera statistics the tap's gradient becomes Σ_b ‖g_b·B‖
+    (the batch loss is a mean over the B cameras) and the denominator
+    grows by ``vis_count``; otherwise the shared tap's gradient and no
+    count."""
+    if not opt.multicam_percam_stats:
+        return tap_grad, None
+    return (torch.linalg.norm(tap_grad[..., :2] * n_cams, dim=-1).sum(0),
+            aux["vis_count"])
+
+
 def rig_update(state: TrainState, grads, tap_grad: torch.Tensor,
                loss: torch.Tensor, aux: Dict[str, Any], n_cams: int,
                opt: OptimizationParams, spatial_lr_scale: float
                ) -> TrainState:
-    """``apply_param_update`` of a rig step: with per-camera statistics
-    the tap's gradient becomes Σ_b ‖g_b·B‖ (the batch loss is a mean over
-    the B cameras) and the denominator grows by ``vis_count``; every
-    learning rate is scaled by ``opt.multicam_lr_scale``."""
-    percam = bool(opt.multicam_percam_stats)
-    if percam:
-        tap_grad = torch.linalg.norm(tap_grad[..., :2] * n_cams,
-                                     dim=-1).sum(0)
-    return apply_param_update(state, grads, tap_grad, loss, aux["radii"],
+    """``apply_param_update`` of a rig step: the terms of ``rig_stats``,
+    every learning rate scaled by ``opt.multicam_lr_scale``."""
+    tap_term, vis_count = rig_stats(tap_grad, aux, n_cams, opt)
+    return apply_param_update(state, grads, tap_term, loss, aux["radii"],
                               aux["visible"], opt, spatial_lr_scale,
                               lr_scale=opt.multicam_lr_scale,
-                              vis_count=aux["vis_count"] if percam else None)
+                              vis_count=vis_count)
 
 
 def train_step_multicam(state: TrainState, cameras: Sequence[Camera],

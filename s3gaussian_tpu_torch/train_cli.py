@@ -20,10 +20,19 @@ flags are those of ``train.py`` but ``--steps_per_dispatch`` (a scanned
 block of steps has no counterpart here) and the TPU-only fields of the
 config groups.
 
-Before it reads the scene it refuses, naming the ROADMAP.md item it
-waits for, ``--batch_size B > 1`` where there are at least B devices
-(data parallelism); with fewer it prints ``train.py``'s note and trains
-with batch size 1, as ``train.py`` does.
+``--batch_size B > 1`` trains data-parallel, one process per device on
+``torch.distributed`` (``parallel/``): each of the B ranks takes one
+camera of the batch, or one rig with ``--multicam``, every rank pops the
+same seeded batch and keeps its own row, and only rank 0 writes files:
+
+    torchrun --nproc_per_node B -m s3gaussian_tpu_torch.train_cli \\
+        -s <waymo_clip> --model_path out/ --batch_size B
+
+Before it reads the scene it refuses a single process that sees at least
+B cards (it names the torchrun command), and a process group whose world
+size is not B.  With fewer devices than B it prints ``train.py``'s note
+and trains with batch size 1, as ``train.py`` does.  Training snapshots
+are skipped with more than one rank.
 """
 
 from __future__ import annotations
@@ -49,6 +58,12 @@ from s3gaussian_tpu_torch.data.scene import load_scene
 from s3gaussian_tpu_torch.device import configure_device
 from s3gaussian_tpu_torch.eval.video import do_evaluation
 from s3gaussian_tpu_torch.models.deformation import DeformationField
+from s3gaussian_tpu_torch.parallel.data_parallel import (
+    parallel_train_step, parallel_train_step_multicam, replicate_state)
+from s3gaussian_tpu_torch.parallel.multihost import (init_multihost,
+                                                     is_primary,
+                                                     local_batch_slice,
+                                                     sync_hosts)
 from s3gaussian_tpu_torch.train import checkpoints as ckpt
 from s3gaussian_tpu_torch.train.trainer import (densify_schedule,
                                                 densify_step, init_state,
@@ -97,8 +112,8 @@ def group_by_time(cams) -> list:
     return list(by_t.values())
 
 
-def device_count(device: torch.device) -> int:
-    """Devices a data-parallel run could use: the CUDA cards, or 1."""
+def visible_devices(device: torch.device) -> int:
+    """The cards one process sees: the CUDA cards, or 1."""
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
@@ -109,14 +124,21 @@ def make_deformation(hyper: ModelHiddenParams, seed: int,
                             device)
 
 
-def not_ported(opt: OptimizationParams, n_devices: int) -> Optional[str]:
-    """What of this run the port does not have yet, with the ROADMAP.md
-    item it waits for; None if the whole run is ported.  ``--batch_size``
-    beyond the devices falls back to 1, as in train.py, so only a data-
-    parallel run that could use its devices waits."""
-    if 1 < opt.batch_size <= n_devices:
-        return ("--batch_size > 1 waits for data parallelism (ROADMAP.md §1 "
-                "item 5)")
+def parallel_refusal(batch_size: int, world: int,
+                     visible: int) -> Optional[str]:
+    """Why a ``--batch_size`` run cannot start, or None.  The port runs
+    one process per device, so a single process that sees ``batch_size``
+    cards would train at batch size 1 where ``train.py`` uses the cards;
+    a process group must hold one rank per camera of the batch."""
+    if world == 1 and 1 < batch_size <= visible:
+        return (f"--batch_size {batch_size} with {visible} devices in one "
+                f"process: the port runs one process per device; launch "
+                f"torchrun --nproc_per_node {batch_size} -m "
+                f"s3gaussian_tpu_torch.train_cli ... --batch_size "
+                f"{batch_size}")
+    if world > 1 and world != batch_size:
+        return (f"{world} ranks for --batch_size {batch_size}: a data-"
+                f"parallel run takes one rank per camera of the batch")
     return None
 
 
@@ -157,15 +179,22 @@ def main(argv=None, device: str = "cuda"):
     cfg = extract_group(RasterConfig, args)
     if args.configs:
         apply_config_file(args.configs, model, pipe, opt, hyper, cfg)
-    n_dev = device_count(torch.device(device))
-    why = not_ported(opt, n_dev)
+    # one process per device: the ranks of the process group are the
+    # devices of a data-parallel run (a no-op (0, 1) without a group)
+    rank, world = init_multihost(device=device)
+    why = parallel_refusal(opt.batch_size, world,
+                           visible_devices(torch.device(device)))
     if why:
-        raise SystemExit(f"train_cli: not ported yet: {why}")
-    if opt.batch_size > 1:
+        raise SystemExit(f"train_cli: {why}")
+    use_parallel = opt.batch_size > 1 and world >= opt.batch_size
+    if world > 1:
+        print(f"data parallel: rank {rank} of {world}")
+    if opt.batch_size > 1 and not use_parallel:
         print(f"batch_size={opt.batch_size} needs >= that many devices "
-              f"(have {n_dev}); falling back to batch_size=1")
+              f"(have {world}); falling back to batch_size=1")
+    # training snapshots are single-process only (train.py:476-477)
     snapshots = (model.render_process and not args.bench_iters
-                 and not args.eval_only)
+                 and not args.eval_only and world == 1)
     if snapshots and importlib.util.find_spec("PIL") is None:
         raise SystemExit("train_cli: the training snapshots (render_process) "
                          "need Pillow, which is not installed")
@@ -183,8 +212,9 @@ def main(argv=None, device: str = "cuda"):
         for fld in dataclasses.fields(grp):
             if not fld.name.startswith("_"):
                 dump[fld.name] = getattr(grp, fld.name)
-    with open(os.path.join(model.model_path, "cfg_args"), "w") as f:
-        f.write(repr(dump))
+    if is_primary():
+        with open(os.path.join(model.model_path, "cfg_args"), "w") as f:
+            f.write(repr(dump))
 
     print(f"Loading scene from {model.source_path}")
     scene = load_scene(model, pool_capacity=model.pool_capacity or None,
@@ -193,11 +223,14 @@ def main(argv=None, device: str = "cuda"):
           f"{len(scene.get_train_cameras())} train cams, "
           f"{len(scene.get_test_cameras())} test cams, "
           f"extent {scene.cameras_extent:.2f}")
-    write_cameras_json(os.path.join(model.model_path, "cameras.json"),
-                       scene.get_test_cameras(), scene.get_train_cameras())
+    if is_primary():
+        write_cameras_json(os.path.join(model.model_path, "cameras.json"),
+                           scene.get_test_cameras(),
+                           scene.get_train_cameras())
 
-    state = init_state(scene.pool, make_deformation(hyper, args.seed, dev),
-                       scene.aabb)
+    # every rank starts from rank 0's state (a no-op for one process)
+    state = replicate_state(init_state(
+        scene.pool, make_deformation(hyper, args.seed, dev), scene.aabb))
     bg = torch.tensor([1.0, 1.0, 1.0] if model.white_background
                       else [0.0, 0.0, 0.0], device=dev)
     if cfg.max_visible == 0:
@@ -211,6 +244,7 @@ def main(argv=None, device: str = "cuda"):
     if args.start_checkpoint:
         state, start_stage, start_iter = ckpt.load_checkpoint(
             args.start_checkpoint, state)
+        state = replicate_state(state)
         print(f"resumed from {args.start_checkpoint} at "
               f"{start_stage}:{start_iter}")
     elif args.eval_only:
@@ -227,7 +261,8 @@ def main(argv=None, device: str = "cuda"):
         return do_evaluation(
             scene.get_train_cameras(), scene.get_test_cameras(),
             scene.get_full_cameras(), st.pool, st.deform, pipe, bg, st.aabb,
-            model.sh_degree, stage, cfg, eval_dir, step=step)
+            model.sh_degree, stage, cfg, eval_dir, step=step,
+            write=is_primary())
 
     if args.eval_only:
         res = evaluate(start_stage if start_iter else "fine",
@@ -237,9 +272,16 @@ def main(argv=None, device: str = "cuda"):
     logger_path = os.path.join(model.model_path, "logger.json")
 
     def log(entry):
-        with open(logger_path, "a") as f:
-            json.dump(entry, f)
-            f.write("\n")
+        if is_primary():
+            with open(logger_path, "a") as f:
+                json.dump(entry, f)
+                f.write("\n")
+
+    def save(stage, iteration, st):
+        # torch.save is not collective: rank 0 writes, the others wait
+        if is_primary():
+            ckpt.save_checkpoint(model.model_path, stage, iteration, st)
+        sync_hosts("ckpt")
 
     def scene_reconstruction(state, stage, first_iter, final_iter):
         if first_iter <= 1:
@@ -254,6 +296,10 @@ def main(argv=None, device: str = "cuda"):
         t_start = time.time()
         n_done = 0
         log_every = max(int(os.environ.get("S3G_LOG_EVERY", "100")), 1)
+        if use_parallel:
+            # every rank pops the same global batch (identical seeds) and
+            # keeps its own row of it
+            b_lo, b_hi = local_batch_slice(opt.batch_size)
 
         def pop_cam():
             nonlocal stack
@@ -263,7 +309,8 @@ def main(argv=None, device: str = "cuda"):
             return cams[stack.pop()]
 
         # --multicam B: a rig of B same-time cameras per step, drawn from
-        # the seeded `random` in train.py's order
+        # the seeded `random` in train.py's order; with --batch_size each
+        # rank takes one rig
         mc = max(int(opt.multicam), 0)
         groups = group_by_time(cams) if mc > 1 else []
         gstack = []
@@ -282,14 +329,16 @@ def main(argv=None, device: str = "cuda"):
         while iteration <= final_iter:
             if iteration % 1000 == 0:
                 active_sh = min(active_sh + 1, model.sh_degree)
-            if mc > 1:
-                state, aux = train_step_multicam(
-                    state, pop_group(), stage, active_sh, hyper, opt, pipe,
-                    cfg, scene.cameras_extent, bg)
+            pop = pop_group if mc > 1 else pop_cam
+            if use_parallel:
+                step = (parallel_train_step_multicam if mc > 1
+                        else parallel_train_step)
+                (view,) = [pop() for _ in range(opt.batch_size)][b_lo:b_hi]
             else:
-                state, aux = train_step(state, pop_cam(), stage, active_sh,
-                                        hyper, opt, pipe, cfg,
-                                        scene.cameras_extent, bg)
+                step = train_step_multicam if mc > 1 else train_step
+                view = pop()
+            state, aux = step(state, view, stage, active_sh, hyper, opt,
+                              pipe, cfg, scene.cameras_extent, bg)
             n_done += 1
 
             if iteration % log_every == 0 or iteration == first_iter:
@@ -358,8 +407,7 @@ def main(argv=None, device: str = "cuda"):
 
             if iteration in args.checkpoint_iterations:
                 print(f"[ITER {iteration}] saving checkpoint")
-                ckpt.save_checkpoint(model.model_path, stage, iteration,
-                                     state)
+                save(stage, iteration, state)
 
             # mid-training evaluation (reference train.py:533-551)
             if iteration == MID_EVAL_ITER and not args.bench_iters:
@@ -375,8 +423,7 @@ def main(argv=None, device: str = "cuda"):
     if start_stage == "coarse":
         state = scene_reconstruction(state, "coarse", start_iter + 1,
                                      opt.coarse_iterations)
-        ckpt.save_checkpoint(model.model_path, "coarse",
-                             opt.coarse_iterations, state)
+        save("coarse", opt.coarse_iterations, state)
         start_iter = 0
 
     if args.prior_checkpoint:
@@ -385,10 +432,12 @@ def main(argv=None, device: str = "cuda"):
 
     state = scene_reconstruction(state, "fine", start_iter + 1,
                                  opt.iterations)
-    ckpt.save_checkpoint(model.model_path, "fine", opt.iterations, state)
-    ckpt.save_ply_pool(os.path.join(
-        model.model_path, "point_cloud", f"iteration_{opt.iterations}",
-        "point_cloud.ply"), state.pool)
+    save("fine", opt.iterations, state)
+    if is_primary():
+        ckpt.save_ply_pool(os.path.join(
+            model.model_path, "point_cloud", f"iteration_{opt.iterations}",
+            "point_cloud.ply"), state.pool)
+    sync_hosts("ckpt_fine")
 
     if not args.bench_iters and not args.skip_final_eval:
         print(json.dumps(evaluate("fine", int(state.step), state),

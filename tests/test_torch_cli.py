@@ -10,8 +10,8 @@ Up to the first densify (coarse step 4) the two runs see the same cameras
 it the split noise differs (``jax.random`` against a ``torch.Generator``).
 The logger keys, ``cameras.json`` and the ``cfg_args`` fields match; the
 port resumes from its own checkpoint, transplants a prior field across
-pool capacities, refuses at startup a data-parallel run it cannot do,
-and falls back to batch size 1 where the devices are fewer than
+pool capacities, refuses at startup a data-parallel run in one process
+that sees the devices for it (naming torchrun), and falls back to batch size 1 where the devices are fewer than
 ``--batch_size``, as ``train.py`` does.
 
 Two more pairs of runs: the reference's density control past a short
@@ -228,18 +228,20 @@ def test_prior_checkpoint_transplants_across_capacities(runs, tmp_path):
                                    atol=0, msg=k)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--batch_size", "2"], "item 5"),
+@pytest.mark.parametrize("flags,match", [
+    (["--batch_size", "2"], "launch torchrun --nproc_per_node 2 -m "
+                            "s3gaussian_tpu_torch.train_cli"),
 ])
 def test_unported_runs_are_refused_at_startup(tmp_path, monkeypatch, flags,
-                                              item):
-    # a data-parallel run is refused where there are enough devices for
-    # it (two here); the source does not exist: a refusal must come
-    # before the reader
-    monkeypatch.setattr(train_cli, "device_count", lambda device: 2)
+                                              match):
+    # a single process that sees as many devices as --batch_size (two
+    # here) is refused: the port runs one process per device, so it
+    # would train at batch size 1 where train.py uses the devices; the
+    # source does not exist: a refusal must come before the reader
+    monkeypatch.setattr(train_cli, "visible_devices", lambda device: 2)
     argv = ["-s", str(tmp_path / "no_clip"), "--model_path",
             str(tmp_path / "out")] + flags
-    with pytest.raises(SystemExit, match=f"ROADMAP.md §1 {item}"):
+    with pytest.raises(SystemExit, match=match):
         train_cli.main(argv, device="cpu")
     assert not os.path.exists(tmp_path / "out")
 

@@ -162,6 +162,7 @@ def _entry_points():
                                            waymo)
     from s3gaussian_tpu_torch.models import deformation, hexplane, pool
     from s3gaussian_tpu_torch.train import checkpoints
+    from s3gaussian_tpu_torch.parallel import multihost
     return {"create_from_pcd": pool.create_from_pcd,
             "PoolStats.zeros": pool.PoolStats.zeros,
             "DeformationField": deformation.DeformationField.__init__,
@@ -186,7 +187,8 @@ def _entry_points():
             "metrics.main": metrics.main,
             "eval_per_view.main": eval_per_view.main,
             "eval_flow_epe.main": eval_flow_epe.main,
-            "trained.load_trained": trained.load_trained}
+            "trained.load_trained": trained.load_trained,
+            "init_multihost": multihost.init_multihost}
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))

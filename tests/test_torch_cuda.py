@@ -699,3 +699,87 @@ def test_cuda_culled_rig_step_matches_cpu(cuda_device):
         np.testing.assert_allclose(got[k].numpy(), w,
                                    atol=1e-3 * np.abs(w).max(), rtol=1e-2,
                                    err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_world_of_one_step_matches_train_step(cuda_device,
+                                                        tmp_path):
+    """``parallel_train_step`` under NCCL at world size 1 (a file store)
+    against ``train_step`` on the card from one state: the loss rtol 1e-4,
+    each tensor's update atol 1e-3·max|update| rtol 1e-2 (chip_smoke.py's
+    train-step tolerances: the per-rank backward accumulates with
+    atomics) from mid-training moments, radii and visibility exact; one
+    forward and one backward launch each."""
+    import torch.distributed as dist
+
+    from s3gaussian_tpu_torch.config import (ModelHiddenParams,
+                                             OptimizationParams,
+                                             PipelineParams)
+    from s3gaussian_tpu_torch.data.cameras import make_camera
+    from s3gaussian_tpu_torch.models.deformation import DeformationField
+    from s3gaussian_tpu_torch.models.pool import create_from_pcd
+    from s3gaussian_tpu_torch.parallel.data_parallel import \
+        parallel_train_step
+    from s3gaussian_tpu_torch.parallel.multihost import init_multihost
+    from s3gaussian_tpu_torch.train.trainer import init_state, train_step
+
+    rng = np.random.default_rng(9)
+    n = 1500
+    pts = np.stack([rng.uniform(-3, 3, n), rng.uniform(-1, 1, n),
+                    rng.uniform(2, 8, n)], 1).astype(np.float32)
+    cols = rng.random((n, 3)).astype(np.float32)
+    image = rng.random((H, W, 3)).astype(np.float32)
+    depth = rng.uniform(1, 8, (H, W)).astype(np.float32)
+    hp = ModelHiddenParams(net_width=16, multires=[1, 2],
+                           kplanes_config={"grid_dimensions": 2,
+                                           "input_coordinate_dim": 4,
+                                           "output_coordinate_dim": 8,
+                                           "resolution": [8, 8, 8, 5]})
+    cfg = RasterConfig(max_visible=2048, pair_budget=1 << 18, rect_w=8,
+                       rect_h=8, tile_x=8, tile_y=8)
+    assert init_multihost("file://" + str(tmp_path / "store"), 1, 0,
+                          device="cuda") == (0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        out = {}
+        for name, step in (("one", train_step), ("dp", parallel_train_step)):
+            pool = create_from_pcd(pts, cols, 2048, device=cuda_device)
+            state = init_state(pool, DeformationField(
+                hp, torch.Generator().manual_seed(0), cuda_device),
+                torch.tensor([[9.0] * 3, [-9.0] * 3], device=cuda_device))
+            # mid-training moments: the update then moves smoothly with
+            # the gradient (at count 0 Adam's first step is lr·sign(g))
+            mrng = np.random.default_rng(3)
+            for tree, scale in ((state.adam.mu, 1e-3), (state.adam.nu, 1e-6)):
+                for d in tree.values():
+                    for v in d.values():
+                        x = mrng.normal(size=tuple(v.shape)) * scale
+                        v.copy_(torch.from_numpy(np.abs(x) if scale < 1e-4
+                                                 else x))
+            state.adam.count.fill_(5)
+            before = {k: v.detach().cpu().clone() for k, v in
+                      state.pool.param_dict().items()}
+            cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.8, W, H,
+                              time=0.4, image=image, depth_map=depth,
+                              device=cuda_device)
+            launches = (tk.launches, tk.bwd_launches)
+            state, aux = step(state, cam, "fine", 3, hp,
+                              OptimizationParams(), PipelineParams(), cfg,
+                              5.0, torch.zeros(3, device=cuda_device))
+            assert (tk.launches - launches[0],
+                    tk.bwd_launches - launches[1]) == (1, 1)
+            out[name] = (aux, {k: v.detach().cpu() - before[k] for k, v in
+                               state.pool.param_dict().items()})
+    finally:
+        dist.destroy_process_group()
+    (want_aux, want), (got_aux, got) = out["one"], out["dp"]
+    np.testing.assert_allclose(got_aux["metrics"]["loss"].item(),
+                               want_aux["metrics"]["loss"].item(), rtol=1e-4)
+    for k in ("radii", "visible"):
+        np.testing.assert_array_equal(got_aux[k].cpu().numpy(),
+                                      want_aux[k].cpu().numpy(), err_msg=k)
+    for k, w in want.items():
+        w = w.numpy()
+        np.testing.assert_allclose(got[k].numpy(), w,
+                                   atol=1e-3 * np.abs(w).max(), rtol=1e-2,
+                                   err_msg=k)

@@ -29,6 +29,8 @@ def test_every_port_module_imports_without_jax():
     for m in ("metrics", "lpips", "flow", "video", "visualization"):
         assert f"s3gaussian_tpu_torch.eval.{m}" in mods
     assert "s3gaussian_tpu_torch.bench" in mods
+    for m in ("data_parallel", "multihost"):
+        assert f"s3gaussian_tpu_torch.parallel.{m}" in mods
     for m in ("mini_clip", "metrics", "eval_per_view", "eval_flow_epe",
               "trained"):
         assert f"s3gaussian_tpu_torch.tools.{m}" in mods
