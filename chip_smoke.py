@@ -55,10 +55,13 @@ last line):
      frame, ``gt_motion.json``) under the ignored ``build/``, trained by
      ``train_cli.main`` with the default model and optimizer and only
      depth and cadence cut (60 coarse + 120 fine steps, density control
-     every 20, opacity reset every 60): every logged loss finite, no
-     budget overflow, clones or splits and prunes, the opacity resets,
-     the fit improving, one forward and one backward launch per step, the
-     final checkpoint and PLY consistent; reader seconds, it/s per stage,
+     every 20, opacity reset every 60; ``--steps_per_dispatch`` at its
+     default 10, so blocks of 10 between the log and density events and
+     every step a replay of the captured step, one capture a stage):
+     every logged loss finite, no budget overflow, clones or splits and
+     prunes, the opacity resets, the fit improving, one forward and one
+     backward launch per step and per capture's warm-up step, the final
+     checkpoint and PLY consistent; reader seconds, it/s per stage,
      ``densify_step`` ms, checkpoint save ms and peak memory.  Then the
      final eval sweep of the same call, with the committed LPIPS fixture
      weights (``S3G_LPIPS_WEIGHTS``), over the train and full splits (30
@@ -77,9 +80,9 @@ last line):
   9. the ``arguments/waymo_perf.py`` preset through ``train_cli.main``
      on phase 7's clip with its cadence (40 coarse + 80 fine rig steps
      of 3 cameras, the cull, the auto-sized ``max_visible``) and its
-     final eval sweep: phase 7's gates with 3 forward and 3 backward
-     launches a rig step, the printed budget and ``check_sweep``'s
-     gates; it/s and cameras/s per stage;
+     final eval sweep: phase 7's gates (blocks of 10 rig steps) with 3
+     forward and 3 backward launches a rig step, the printed budget and
+     ``check_sweep``'s gates; it/s and cameras/s per stage;
  10. the offline tools on phase 7's model path: ``tools/eval_per_view``
      (its mean PSNR equals the final sweep's train-split mean within
      1e-4; one forward launch a camera and two flow renders),
@@ -88,8 +91,9 @@ last line):
      directory written from the sweep's train-split frames (finite PSNR
      and SSIM, one entry a view, LPIPS null without VGG weights);
  11. ``python -m s3gaussian_tpu_torch.bench`` in a subprocess at its
-     defaults (bench.py's four workloads, 10 warm-up and 20 timed steps
-     each): the headline first and last, four detail lines without an
+     defaults (bench.py's four workloads, each a warm-up block of 10
+     steps and 2 timed blocks, replays of the captured step): the
+     headline first and last, four detail lines without an
      error, no dropped pair, finite losses, one forward and one backward
      launch a camera of a step; its lines printed;
  12. data parallelism (``parallel/``), on the one card: (12a) NCCL at
@@ -106,17 +110,39 @@ last line):
      cameras' averaged step (phase 6's tolerances); ms a step and of the
      all-reduce, bytes; (12c) the CLI with ``--batch_size 2`` on two gloo
      ranks on phase 7's clip (20 coarse + 40 fine, density control from
-     10 every 20, no sweep): finite losses, one logger line a logged step
+     10 every 20, no sweep, ``--steps_per_dispatch 1``: gloo's
+     all-reduces cannot be captured): finite losses, one logger line a
+     logged step
      (rank 0 alone writes), no overflow, the densifies, one checkpoint
      and one PLY, the replicas equal at the end; it/s per stage.  The
      two-rank figures are labelled: two ranks sharing one card are not a
-     scaling figure.
+     scaling figure;
+ 13. the train step as a captured CUDA graph (``train/graphs.py``)
+     against the eager step, run after 5b from its pool and field with
+     mid-training moments (as 12a's), cameras that
+     differ in yaw, time, field of view and target: (a) a fine block of
+     10 through ``train_steps_scan``, (b) 3 rigs of 3 through
+     ``train_steps_scan_multicam``, (c) a ``densify_step`` between two
+     blocks of 3, the second loaded into the held graph without a
+     recapture, (d) a block of 5 ``parallel_train_steps_scan`` under
+     NCCL at world size 1 against ``train_steps_scan``; each held to
+     phase 6's step tolerances step by step (metrics and counters), then
+     the parameters, moments and statistics; one forward and one
+     backward launch a camera captured and counted a replay; the second
+     eager step of each kind runs under
+     ``torch.cuda.set_sync_debug_mode("error")``.  Per block: the
+     warm-up and capture ms, ms a step replayed and eager (CUDA events,
+     median), device operations, host launch calls and device ms a step
+     as ``torch.profiler`` counts them, peak and reserved memory.
+     ``python3 chip_smoke.py --phase 13`` runs the build and this phase
+     alone, on a fresh headline state, and prints no result line.
 
 Then the compositor launches of every phase that drives the port's
-paths (4, 5, 5b, 6c, 7, 8, 9, 10, 11, 12a-c, the last two summed over
-both ranks; not the comparisons of 3, 6 and 6b), one JSON line with both kernels (their launches summed over those
-phases), the script's wall time, the card line, and last ``{"ok": true,
-"device": {...}}``.  The port imports no jax; neither does this script.
+paths (4, 5, 5b, 6c, 7, 8, 9, 10, 11, 12a-c, 13, 12b and 12c summed over
+both ranks; not the comparisons of 3, 6 and 6b), one JSON line with
+both kernels (their launches summed over those phases), the script's
+wall time, the card line, and last ``{"ok": true, "device": {...}}``.
+The port imports no jax; neither does this script.
 """
 
 from __future__ import annotations
@@ -238,6 +264,16 @@ DP_COARSE, DP_FINE, DP_RIG_STEPS = 2, 3, 3
 DP_YAWS, DP_RIG_TIMES = (-40.0, 40.0), (0.4, 0.6)
 DP_CLI_COARSE, DP_CLI_FINE, DP_CLI_DENSIFY_FROM = 20, 40, 10
 DP_LABEL = "two ranks sharing one card, gloo: not a scaling figure"
+# phase 13: steps a block of (a), rigs of 3 of (b), steps a block on
+# either side of (c)'s densify, steps of (d)'s DP block; the cameras'
+# fields of view in turn; steps profiled; the runtime calls the profiler
+# counts as launches
+GRAPH_BLOCK, GRAPH_RIGS, GRAPH_SPLIT, GRAPH_DP = 10, 3, 3, 5
+GRAPH_FOVS = (0.9, 1.0, 1.1)
+GRAPH_PROFILE = 2
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync"}
 
 
 class SmokeFailure(Exception):
@@ -260,9 +296,11 @@ def make_scene(torch, dev, n, cap, seed=0):
     return create_from_pcd(pts, cols, cap, device=dev), rng
 
 
-def rig_camera(torch, dev, yaw_deg, t, h, w, image=None, depth_map=None):
+def rig_camera(torch, dev, yaw_deg, t, h, w, image=None, depth_map=None,
+               fov=1.0):
     """A rig camera at the ego centre looking along ``yaw`` (bench.py's
-    FRONT_LEFT / FRONT / FRONT_RIGHT geometry); yaw 0 is bench.py's
+    FRONT_LEFT / FRONT / FRONT_RIGHT geometry) with a field of view of
+    ``fov`` radians across and down; yaw 0 and fov 1 is bench.py's
     headline camera."""
     from s3gaussian_tpu_torch.data.cameras import Camera
     from s3gaussian_tpu_torch.ops.transforms import projection_matrix
@@ -271,7 +309,7 @@ def rig_camera(torch, dev, yaw_deg, t, h, w, image=None, depth_map=None):
     view = np.eye(4, dtype=np.float32)
     view[:3, :3] = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]],
                             np.float32)
-    full = (view @ projection_matrix(0.01, 100.0, 1.0, 1.0).T).astype(
+    full = (view @ projection_matrix(0.01, 100.0, fov, fov).T).astype(
         np.float32)
 
     def t_(x):
@@ -280,7 +318,7 @@ def rig_camera(torch, dev, yaw_deg, t, h, w, image=None, depth_map=None):
     return Camera(world_view=t_(view), full_proj=t_(full),
                   campos=torch.zeros(3, device=dev),
                   time=torch.tensor(t, dtype=torch.float32, device=dev),
-                  fovx=1.0, fovy=1.0, image_height=h, image_width=w,
+                  fovx=fov, fovy=fov, image_height=h, image_width=w,
                   image=t_(image), depth_map=t_(depth_map))
 
 
@@ -625,7 +663,7 @@ def new_record():
             "alloc": [], "evals": [], "splits": [], "rig_s": [], "flow_s": [],
             "video_s": [], "ovf": dict.fromkeys(SWEEP_OVERFLOW, 0),
             "pair": None, "train_launches": None, "train_peak": None,
-            "frames": None}
+            "frames": None, "dispatches": [], "captures": []}
 
 
 @contextlib.contextmanager
@@ -637,10 +675,13 @@ def cli_hooks(torch, rec):
     from s3gaussian_tpu_torch.eval import video
     from s3gaussian_tpu_torch.ops import tile_kernels as tk
     from s3gaussian_tpu_torch.train import checkpoints as ckpt
+    from s3gaussian_tpu_torch.train import graphs
 
     targets = {(train_cli, "load_scene"), (train_cli, "densify_step"),
                (train_cli, "train_step"), (train_cli, "train_step_multicam"),
-               (train_cli, "do_evaluation"),
+               (train_cli, "train_steps_scan"),
+               (train_cli, "train_steps_scan_multicam"),
+               (graphs, "StepGraph"), (train_cli, "do_evaluation"),
                (ckpt, "save_checkpoint"), (video, "render_pixels"),
                (video, "render_multicam"), (video, "render"),
                (video, "save_videos")}
@@ -663,11 +704,23 @@ def cli_hooks(torch, rec):
         return res
 
     def counted_step(name):
-        def step(state, cam, stage, *a, **k):
-            res = orig[name](state, cam, stage, *a, **k)
-            rec["alloc"].append((stage, torch.cuda.memory_allocated()))
+        def step(state, cam, *a, **k):
+            res = orig[name](state, cam, *a, **k)
+            # a block's views, and its stage after n_cams for the rigs
+            stage = a[1] if name.endswith("scan_multicam") else a[0]
+            rec["dispatches"].append(len(cam) if "scan" in name else 1)
+            if res[0] is state:
+                # a state that a densify or reset made anew, copied into
+                # the graph's, is alive beside it until the caller drops it
+                rec["alloc"].append((stage, torch.cuda.memory_allocated()))
             return res
         return step
+
+    class CountedGraph(orig["StepGraph"]):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            rec["captures"].append((self.warmup_ms, self.capture_ms,
+                                    self.launches))
 
     def save_checkpoint(*a, **k):
         t = time.perf_counter()
@@ -736,6 +789,10 @@ def cli_hooks(torch, rec):
     hooks = {"load_scene": load_scene, "densify_step": densify_step,
              "train_step": counted_step("train_step"),
              "train_step_multicam": counted_step("train_step_multicam"),
+             "train_steps_scan": counted_step("train_steps_scan"),
+             "train_steps_scan_multicam": counted_step(
+                 "train_steps_scan_multicam"),
+             "StepGraph": CountedGraph,
              "save_checkpoint": save_checkpoint,
              "do_evaluation": do_evaluation, "render_pixels": render_pixels,
              "render_multicam": timed_render(orig["render_multicam"],
@@ -1047,9 +1104,10 @@ def cli_phase(torch, dev, card):
     psnr0, psnr1 = coarse_psnr[0], coarse_psnr[-1]
     check(psnr1 > psnr0, f"psnr at coarse {CLI_COARSE} {psnr1} not above "
           f"coarse step 1 {psnr0}")
-    check(launches == (CLI_COARSE + CLI_FINE,) * 2,
-          f"{launches} forward/backward launches for "
-          f"{CLI_COARSE + CLI_FINE} train steps")
+    n_steps, dispatch = CLI_COARSE + CLI_FINE, dispatches(rec, 1, "cli")
+    check(launches == (n_steps + len(rec["captures"]),) * 2,
+          f"{launches} forward/backward launches for {n_steps} train steps "
+          f"and {len(rec['captures'])} captures' warm-up steps")
     # the last Loss line logs before its step's densify; the pool the
     # checkpoint and PLY hold is the one after it
     flat = torch.load(os.path.join(out, f"chkpnt_fine_{CLI_FINE}",
@@ -1094,8 +1152,8 @@ def cli_phase(torch, dev, card):
           f"it/s coarse {rates['coarse']} fine {rates['fine']}; coarse psnr "
           f"{psnr0} -> {psnr1} dB, fine {steps[-1]['psnr']} dB at step "
           f"{CLI_FINE}; {launches[0]} forward / {launches[1]} "
-          f"backward launches; alive {n_ckpt} in the checkpoint and the PLY "
-          f"({card})", flush=True)
+          f"backward launches; alive {n_ckpt} in the checkpoint and the PLY; "
+          f"{dispatch} ({card})", flush=True)
     print(f"cli: densify_step ms at capacity {CLI_CAPACITY} (CUDA events): "
           + " ".join(f"{x:.2f}" for x in rec["densify_ms"])
           + f" | median {np.median(rec['densify_ms']):.2f}; checkpoint save "
@@ -1106,6 +1164,24 @@ def cli_phase(torch, dev, card):
           flush=True)
     sweep = check_sweep(torch, rec, out, int(state.step), card, "cli")
     return state, argv, out, rec, sweep
+
+
+def dispatches(rec, cams, what):
+    """Gates on the CLI's dispatches that ``cli_hooks`` recorded: every
+    one through the captured step (blocks of the default 10 and single
+    steps), one capture a stage, each capture with one forward and one
+    backward launch a camera.  Returns their summary line."""
+    blocks = rec["dispatches"]
+    caps = rec["captures"]
+    check(len(caps) == 2 and all(c[2] == (cams, cams) for c in caps),
+          f"{what}: captures (warm-up ms, capture ms, launches) {caps}: "
+          f"not one a stage with {cams} launch(es) of each kernel")
+    check(blocks.count(10) > 0 and set(blocks) <= {1, 10},
+          f"{what}: dispatches of {sorted(set(blocks))} steps")
+    return (f"{len(blocks)} dispatches ({blocks.count(10)} blocks of 10, "
+            f"{blocks.count(1)} single steps) through the captured step; "
+            f"captures (warm-up, capture ms) " + ", ".join(
+                f"({w:.1f}, {c:.1f})" for w, c, _ in caps))
 
 
 def compare_step(torch, start, s_gpu, s_cpu, aux_g, aux_c, what):
@@ -1450,9 +1526,11 @@ def perf_cli_phase(torch, argv7, card):
           f"{coarse_psnr[0]} -> {coarse_psnr[-1]}")
     n_steps = PERF_COARSE + PERF_FINE
     launches = rec["train_launches"]
-    check(launches == (3 * n_steps,) * 2,
+    dispatch = dispatches(rec, 3, "waymo_perf")
+    check(launches == (3 * (n_steps + len(rec["captures"])),) * 2,
           f"waymo_perf: {launches} forward/backward launches for {n_steps} "
-          f"rig steps of 3 cameras")
+          f"rig steps of 3 cameras and {len(rec['captures'])} captures' "
+          f"warm-up steps")
     rates = {s: [l for l in steps if l["stage"] == s][-1]["it_per_s"]
              for s in ("coarse", "fine")}
     print("waymo_perf: densify " + "; ".join(
@@ -1471,7 +1549,8 @@ def perf_cli_phase(torch, argv7, card):
           f"coarse psnr {coarse_psnr[0]} -> {coarse_psnr[-1]} dB, fine "
           f"{steps[-1]['psnr']} dB; {launches[0]} forward / {launches[1]} "
           f"backward launches; training peak "
-          f"{rec['train_peak'] / 2 ** 30:.2f} GiB ({card})", flush=True)
+          f"{rec['train_peak'] / 2 ** 30:.2f} GiB; {dispatch} ({card})",
+          flush=True)
     _, sweep = check_sweep(torch, rec, out, int(state.step), card,
                            "waymo_perf")
     return launches, sweep
@@ -1960,7 +2039,7 @@ def dp_cli_phase(clip, card):
             "--opacity_reset_interval", str(CLI_RESET),
             "--checkpoint_iterations", str(CLI_CKPT),
             "--pair_budget", "4194304", "--batch_size", str(DP_WORLD),
-            "--skip_final_eval"]
+            "--skip_final_eval", "--steps_per_dispatch", "1"]
     with open(os.path.join(root, "argv_12c.json"), "w") as f:
         json.dump(argv, f)
     reports, wall = run_dp_ranks("cli", root)
@@ -2013,10 +2092,298 @@ def dp_cli_phase(clip, card):
     return tuple(sum(rep["launches"][i] for rep in reports) for i in (0, 1))
 
 
+def profile_counts(torch, fn, n_steps):
+    """(device operations, host launch calls, device ms) a step of what
+    ``fn`` runs, as ``torch.profiler`` counts them: the kernels, copies
+    and fills the card ran, and the runtime calls that launched them (a
+    graph replay is one ``cudaGraphLaunch``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = [e for e in events if e.name in LAUNCH_CALLS]
+    return (len(device) / n_steps, len(calls) / n_steps,
+            sum(e.device_time_total for e in device) / 1e3 / n_steps)
+
+
+def compare_blocks(torch, start, s_graph, s_eager, aux_g, aux_e, what):
+    """A block of replayed steps against as many eager ones from the same
+    state, within phase 6's step tolerances: every step's metrics rtol
+    STEP_LOSS_RTOL, its counters equal but for 0.1%, its largest visible
+    radius within a pixel; the last state by ``compare_step``; the Adam
+    moments atol STEP_ATOL_SCALE·max rtol STEP_RTOL; count, step and
+    nan_skips equal."""
+    for k, e in aux_e["metrics"].items():
+        e, g = e.double().cpu(), aux_g["metrics"][k].double().cpu()
+        check(bool(((g - e).abs() <= STEP_LOSS_RTOL * e.abs() + 1e-9).all()),
+              f"{what} metric {k}: replayed {g.tolist()} eager {e.tolist()}")
+    for k in ("n_pairs", "overflow_rect", "overflow_visible",
+              "overflow_pairs", "n_r20"):
+        e, g = aux_e[k].cpu().long(), aux_g[k].cpu().long()
+        check(bool(((g - e).abs() <= torch.clamp(e // 1000, min=1)).all()),
+              f"{what} {k}: replayed {g.tolist()} eager {e.tolist()}")
+    check(bool(((aux_g["radii_max"] - aux_e["radii_max"]).abs() <= 1).all()),
+          f"{what} radii_max: {aux_g['radii_max'].tolist()} vs "
+          f"{aux_e['radii_max'].tolist()}")
+    last = [{"metrics": {"loss": a["metrics"]["loss"][-1]}}
+            for a in (aux_g, aux_e)]
+    e_cpu = state_to(torch, s_eager, "cpu")
+    _, _, worst, acc_err = compare_step(torch, start, s_graph, e_cpu,
+                                        *last, what)
+    for which in ("mu", "nu"):
+        for g, d in getattr(e_cpu.adam, which).items():
+            for k, e in d.items():
+                got = getattr(s_graph.adam, which)[g][k].cpu()
+                err = (got - e).abs()
+                bad = err > STEP_ATOL_SCALE * float(e.abs().max()) \
+                    + STEP_RTOL * e.abs()
+                check(not bool(bad.any()), f"{what} adam {which} {g}.{k}: "
+                      f"{int(bad.sum())} entries differ, max "
+                      f"{float(err.max()):.3e}")
+    for name, a, b in (("count", s_graph.adam.count, e_cpu.adam.count),
+                       ("step", s_graph.step, e_cpu.step),
+                       ("nan_skips", s_graph.nan_skips, e_cpu.nan_skips)):
+        check(int(a) == int(b), f"{what} {name}: {int(a)} vs {int(b)}")
+    return worst, acc_err
+
+
+def graph_phase(torch, su, state, card):
+    """Phase 13: the train step captured as one CUDA graph against the
+    eager step on the card, from ``state``'s pool and field with
+    ``mid_training``'s moments, cameras
+    that differ in yaw, time, field of view and target: (a) a fine block
+    of GRAPH_BLOCK through ``train_steps_scan``, (b) GRAPH_RIGS rigs of 3
+    through ``train_steps_scan_multicam``, (c) a ``densify_step`` between
+    two blocks of GRAPH_SPLIT, the second loaded into the held graph,
+    (d) a block of GRAPH_DP ``parallel_train_steps_scan`` under NCCL at
+    world size 1 against ``train_steps_scan``.  Each held to
+    ``compare_blocks``; the second eager step of each kind runs with
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in a step).
+    Prints per block the capture ms, ms a step replayed and eager (CUDA
+    events, median), device operations and host launch calls a step as
+    the profiler counts them, and the peak memory of either.  Returns
+    the compositor launches of the replays."""
+    import torch.distributed as dist
+
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.parallel import data_parallel as dp
+    from s3gaussian_tpu_torch.parallel.multihost import init_multihost
+    from s3gaussian_tpu_torch.train import graphs
+    from s3gaussian_tpu_torch.train import trainer as tr
+    from s3gaussian_tpu_torch.train.checkpoints import state_tensors
+
+    dev = su.bg.device
+    args = ("fine", 3, su.hp, su.opt, su.pipe, su.cfg, SPATIAL_LR_SCALE,
+            su.bg)
+    targets = [(su.gt, su.gt_depth),
+               (np.ascontiguousarray(su.gt[::-1]),
+                np.ascontiguousarray(su.gt_depth[::-1]))]
+
+    def cam(i, yaw):
+        img, dmap = targets[i % 2]
+        return rig_camera(torch, dev, yaw, 0.4 + 1e-3 * i, H, W, img, dmap,
+                          fov=GRAPH_FOVS[i % len(GRAPH_FOVS)])
+
+    singles = [cam(i, YAWS_DEG[i % 3]) for i in range(GRAPH_BLOCK)]
+    rigs = [[cam(i, yaw) for yaw in YAWS_DEG] for i in range(GRAPH_RIGS)]
+    # the trained pool and field with mid-training moments, as 12a's: no
+    # update is then the sign of a gradient that rounds to zero
+    base = mid_training(torch, state_to(torch, state, dev), 13)
+    l13 = (tk.launches, tk.bwd_launches)
+
+    def eager(st, views, step, sync_check):
+        ms, rows = [], []
+        for i, v in enumerate(views):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            no_sync = sync_check and i == 1
+            if no_sync:
+                # any host sync inside the step raises (the first step
+                # fills the constant caches)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                ev[0].record()
+                st, aux = step(st, v, *args)
+                ev[1].record()
+                rows.append(tr.small_aux(aux))
+            finally:
+                if no_sync:
+                    torch.cuda.set_sync_debug_mode("default")
+            ms.append(ev)
+        torch.cuda.synchronize()
+        return st, tr.stack_aux(rows), [a.elapsed_time(b) for a, b in ms]
+
+    def replayed(st, views, scan, n_cams):
+        marks = []
+        l0 = (tk.launches, tk.bwd_launches)
+        extra = (n_cams,) if n_cams else ()
+        st, aux = scan(st, views, *extra, *args, marks=marks)
+        torch.cuda.synchronize()
+        got = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        return st, aux, ms, got
+
+    def measured(run):
+        graphs.release()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = run()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - held) / 2 ** 30, \
+            torch.cuda.memory_reserved() / 2 ** 30
+
+    def block_case(what, views, step, scan, n_cams):
+        b = max(n_cams, 1)
+        start = {k: v.cpu() for k, v in snapshot(torch, base).items()}
+        (s_e, aux_e, ms_e), peak_e, res_e = measured(
+            lambda: eager(state_to(torch, base, dev), views, step, True))
+        (s_g, aux_g, ms_g, got), peak_g, res_g = measured(
+            lambda: replayed(state_to(torch, base, dev), views, scan, n_cams))
+        g = graphs.current()
+        n = len(views)
+        check(g.launches == (b, b),
+              f"{what}: the graph captured {g.launches} launches for {b} "
+              f"camera(s)")
+        check(got == ((n + 1) * b,) * 2,
+              f"{what}: {got} launches for {n} replays and the capture's "
+              f"warm-up step of {b} camera(s)")
+        worst, acc_err = compare_blocks(torch, start, s_g, s_e, aux_g, aux_e,
+                                        what)
+        prof_views = views[:GRAPH_PROFILE]
+        dev_e, calls_e, kms_e = profile_counts(
+            torch, lambda: eager(s_e, prof_views, step, False),
+            GRAPH_PROFILE)
+        dev_g, calls_g, kms_g = profile_counts(
+            torch, lambda: replayed(s_g, prof_views, scan, n_cams),
+            GRAPH_PROFILE)
+        med_e, med_g = float(np.median(ms_e)), float(np.median(ms_g))
+        print(f"13 {what}: {n} steps of {b} camera(s), replayed vs eager "
+              f"from one mid-training state: worst update error "
+              f"{worst:.3e} of its tensor's largest update, xyz_grad_accum "
+              f"max abs err {acc_err:.3e}, losses " + " ".join(
+                  f"{x:.6f}" for x in aux_g["metrics"]["loss"].tolist())
+              + f"; warm-up {g.warmup_ms:.1f} ms, capture {g.capture_ms:.1f}"
+              f" ms; ms a step (CUDA events, median) replayed {med_g:.3f} "
+              f"eager {med_e:.3f} (" + " ".join(f"{x:.2f}" for x in ms_g)
+              + " | " + " ".join(f"{x:.2f}" for x in ms_e) + "); a step, "
+              f"profiled over {GRAPH_PROFILE}: device operations "
+              f"{dev_g:.0f} replayed / {dev_e:.0f} eager, host launch calls "
+              f"{calls_g:.0f} / {calls_e:.0f}, device ms {kms_g:.3f} / "
+              f"{kms_e:.3f} (busy share {kms_g / med_g:.3f} / "
+              f"{kms_e / med_e:.3f}); peak above the states "
+              f"{peak_g:.2f} GiB replayed (warm-up and capture included) / "
+              f"{peak_e:.2f} eager, reserved after {res_g:.2f} / "
+              f"{res_e:.2f} GiB; {g.launches[0]} forward / {g.launches[1]} "
+              f"backward launches a replay ({card})", flush=True)
+        del s_e, aux_e
+        return s_g
+
+    t13 = time.time()
+    block_case("(a) fine block", singles, tr.train_step, tr.train_steps_scan,
+               0)
+    block_case("(b) rig block", rigs, tr.train_step_multicam,
+               tr.train_steps_scan_multicam, 3)
+
+    # (c) a densify between two blocks: the second block loads the
+    # densified state into the held graph, no recapture
+    graphs.release()
+    s_g, _ = tr.train_steps_scan(state_to(torch, base, dev),
+                                 singles[:GRAPH_SPLIT], *args)
+    g = graphs.current()
+    statics = {k: v.data_ptr()
+               for k, v in state_tensors(s_g).items()}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    noise = torch.randn((2, CAPACITY, 3), generator=gen, device=dev)
+    d_state, info = tr.densify_step(
+        s_g, gen, su.opt.densify_grad_threshold_fine_init, 0.005, 50.0, None,
+        su.opt, noise=noise)
+    info = {k: int(v) for k, v in info.items()}
+    check(info["n_cloned"] + info["n_split"] > 0 and info["n_pruned"] > 0,
+          f"13 (c): densify {info}")
+    s_e = state_to(torch, d_state, dev)
+    start = {k: v.cpu() for k, v in snapshot(torch, d_state).items()}
+    l0 = (tk.launches, tk.bwd_launches)
+    s_g2, aux_g = tr.train_steps_scan(d_state, singles[GRAPH_SPLIT:
+                                                       2 * GRAPH_SPLIT],
+                                      *args)
+    torch.cuda.synchronize()
+    check(graphs.current() is g and s_g2 is g.state,
+          "13 (c): the block after the densify captured anew")
+    check({k: v.data_ptr() for k, v in state_tensors(s_g2).items()}
+          == statics, "13 (c): the static state moved")
+    got = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+    check(got == (GRAPH_SPLIT,) * 2, f"13 (c): {got} launches for "
+          f"{GRAPH_SPLIT} replays")
+    s_e, aux_e, _ = eager(s_e, singles[GRAPH_SPLIT:2 * GRAPH_SPLIT],
+                          tr.train_step, False)
+    worst, acc_err = compare_blocks(torch, start, s_g2, s_e, aux_g, aux_e,
+                                    "13 (c) after densify")
+    print(f"13 (c): block of {GRAPH_SPLIT}, densify_step ("
+          + ", ".join(f"{k} {v}" for k, v in info.items() if k.startswith(
+              "n_")) + f"), block of {GRAPH_SPLIT} loaded into the held "
+          f"graph (no recapture, the static tensors in place) vs "
+          f"{GRAPH_SPLIT} eager steps from the densified state: worst "
+          f"update error {worst:.3e}, xyz_grad_accum max abs err "
+          f"{acc_err:.3e}", flush=True)
+    del s_g, s_g2, s_e, d_state, noise
+
+    # (d) the data-parallel block under NCCL at world size 1
+    graphs.release()
+    root = os.path.join(REPO, "build", "chip_smoke_graph")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    check(init_multihost("file://" + os.path.join(root, "store"), 1, 0,
+                         device="cuda") == (0, 1), "13 (d): world of one")
+    try:
+        check(dist.get_backend() == "nccl",
+              f"13 (d): backend {dist.get_backend()}")
+        eager(state_to(torch, base, dev), singles[:2], dp.parallel_train_step,
+              True)
+        views = singles[:GRAPH_DP]
+        start = {k: v.cpu() for k, v in snapshot(torch, base).items()}
+        (s_one, aux_one, ms_one, _), _, _ = measured(lambda: replayed(
+            state_to(torch, base, dev), views, tr.train_steps_scan, 0))
+        (s_dp, aux_dp, ms_dp, got), peak_dp, _ = measured(lambda: replayed(
+            state_to(torch, base, dev), views, dp.parallel_train_steps_scan,
+            0))
+        check(got == (GRAPH_DP + 1,) * 2,
+              f"13 (d): {got} launches for {GRAPH_DP} replays and a warm-up")
+        g = graphs.current()
+        graphs.release()
+        worst, acc_err = compare_blocks(torch, start, s_dp, s_one, aux_dp,
+                                        aux_one, "13 (d) DP block")
+    finally:
+        graphs.release()
+        dist.destroy_process_group()
+    print(f"13 (d): NCCL at world size 1, a block of {GRAPH_DP} "
+          f"parallel_train_steps_scan (both all-reduces captured) vs "
+          f"train_steps_scan from one state: worst update error "
+          f"{worst:.3e}, xyz_grad_accum max abs err {acc_err:.3e}; capture "
+          f"{g.capture_ms:.1f} ms; ms a step (CUDA events, median) DP "
+          f"{np.median(ms_dp):.3f} vs {np.median(ms_one):.3f}; peak above "
+          f"the states {peak_dp:.2f} GiB ({card})", flush=True)
+    launches = (tk.launches - l13[0], tk.bwd_launches - l13[1])
+    print(f"13: graph vs eager in {time.time() - t13:.1f} s; "
+          f"{launches[0]} forward / {launches[1]} backward launches",
+          flush=True)
+    return launches
+
+
 T_START = time.time()
 
 
-def main() -> int:
+def main(only=None) -> int:
+    """The smoke run; ``only="13"`` runs the build and phase 13 alone (on
+    a fresh headline state with mid-training moments) and prints no
+    result line."""
     import torch
 
     from s3gaussian_tpu_torch.bench import card_line
@@ -2059,6 +2426,11 @@ def main() -> int:
     # the headline workload of bench.py
     t0 = time.time()
     su = headline(torch, dev)
+    if only == "13":
+        graph_phase(torch, su, tr.init_state(su.pool, su.deform, su.aabb),
+                    card)
+        print("chip_smoke: phase 13 alone, not the smoke run", flush=True)
+        return 0
     pool, deform, aabb, pipe, cfg, bg, cams = (su.pool, su.deform, su.aabb,
                                                su.pipe, su.cfg, su.bg,
                                                su.cams)
@@ -2291,6 +2663,10 @@ def main() -> int:
     # 5b. the rig step at the headline, from phase 5's state
     state, rig_launches = rig_step_phase(torch, su, state, card,
                                          float(np.median(fine_ms)))
+
+    # 13. the train step as a captured CUDA graph against the eager step,
+    # from 5b's mid-training state
+    graph13 = graph_phase(torch, su, state, card)
     del state
 
     # 6. small scene: GPU vs CPU (plain compositors): render + train step,
@@ -2450,7 +2826,7 @@ def main() -> int:
             "9 waymo_perf training": train9, "9 waymo_perf sweep": sweep9,
             "10 offline tools": tools10, "11 bench": bench11,
             "12a NCCL world 1": dp12a, "12b two gloo ranks": dp12b,
-            "12c CLI two gloo ranks": dp12c}
+            "12c CLI two gloo ranks": dp12c, "13 graph vs eager": graph13}
     main_launches = tuple(sum(v[i] for v in path.values()) for i in (0, 1))
     print("compositor launches, forward / backward: " + "; ".join(
         f"{k} {v[0]} / {v[1]}" for k, v in path.items())
@@ -2461,6 +2837,7 @@ def main() -> int:
           "the tools or the bench launched no kernel")
     check(all(v[0] > 0 and v[1] > 0 for v in (dp12a, dp12b, dp12c)),
           "a data-parallel phase launched no kernel")
+    check(graph13[0] > 0 and graph13[1] > 0, "phase 13 launched no kernel")
     print(f"smoke run: {time.time() - T_START:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -2492,6 +2869,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--dp-rank"]:
             code = dp_rank_main(*sys.argv[2:])
+        elif sys.argv[1:] == ["--phase", "13"]:
+            code = main(only="13")
         else:
             code = main()
     except SmokeFailure as e:

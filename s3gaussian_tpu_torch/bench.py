@@ -20,13 +20,19 @@ apart.  Step i runs at time 0.4 + 1e-4·i (stage fine, SH degree 3).
   detail_waymo_rig     street360 1.5 M, rigs of 3 yawed cameras, the
                        union cull to 589,824 rows, big_budget 131,072
 
-Each workload runs one warm-up block of ``WARMUP_STEPS`` train steps,
-then ``BENCH_STEPS`` timed ones on the host clock, ending in
-``torch.cuda.synchronize()``: ``it_per_s`` is steps over seconds.  Beside
-it, each step's time from CUDA events (median, min, max) and the peak
-device memory.  ``render_fps`` times as many ``render()`` calls without
-gradient, the time shifted by 1e-6·i, each followed by a host fetch.
-The last step must drop no pair and end with a finite loss.
+The unit of work is ``bench.py``'s: a block of ``BENCH_SCAN`` steps (10)
+in one dispatch (``trainer.train_steps_scan``, ``..._multicam``), on the
+card the replays of the step captured as one CUDA graph, step i of a
+block at time 0.4 + 1e-4·i.  Each workload runs one warm-up block (on
+the card the capture, timed alone as ``capture_ms``, then its replays),
+then ``BENCH_STEPS // BENCH_SCAN`` timed blocks (at least one) on the
+host clock, ending in ``torch.cuda.synchronize()``: ``it_per_s`` is
+steps over seconds.  Beside it, each step's time from CUDA events
+recorded between the replays (median, min, max) and the peak device
+memory, the graph's pool included.  ``render_fps`` times as many
+``render()`` calls without gradient as timed steps, the time shifted by
+1e-6·i, each followed by a host fetch.  The last step must drop no pair
+and end with a finite loss.
 
 Output keeps ``bench.py``'s lines: the headline ``{"metric":
 "train_iters_per_sec_640x960_fine", "value", "unit": "it/s"}`` on
@@ -36,20 +42,20 @@ stdout first and again last (then with ``rig_cams_per_s``); the
 workload's ``{"error": ...}``.  Against ``bench.py``: ``backend`` is the
 card's name and power limit (``nvidia-smi``); ``session_s`` and
 ``compile_s`` become ``build_s`` (the kernels' ``nvcc`` build) and
-``warmup_s``; ``vs_baseline`` and ``roofline_frac`` are gone (they
-divided by an assumed rate and another device's constant); added are
+``warmup_s`` (the warm-up block, capture included); ``vs_baseline`` and
+``roofline_frac`` are gone (they divided by an assumed rate and another
+device's constant); added are ``steps_per_dispatch``, ``capture_ms``,
 ``step_ms_median``/``_min``/``_max``, ``peak_gib`` and the compositor
 launches (``launches`` over the workload, ``launches_per_step`` over the
-timed steps, forward and backward).
+timed steps, forward and backward; a replay counts the launches its
+graph captured).
 
-Environment: ``BENCH_STEPS`` (timed steps, 20), ``S3G_BENCH_SKIP_MULTICAM``,
-``S3G_BENCH_SKIP_FULL`` (skips both 1.5 M workloads, as in ``bench.py``),
-``S3G_BENCH_SKIP_RIG``, ``BENCH_BIG_BUDGET``, ``BENCH_FULL_BIG_BUDGET``,
-``BENCH_RIG_BIG_BUDGET`` and ``BENCH_RIG_MAX_VISIBLE``.  ``bench.py``'s
-``BENCH_SCAN`` (steps a scanned dispatch) has no counterpart: a step is
-an eager call, the warm-up is one block of its default 10 steps and the
-timed steps are ``BENCH_STEPS`` exactly.  ``BENCH_CHUNK`` is gone: the
-CUDA compositors take their pairs in fixed batches of 128
+Environment: ``BENCH_STEPS`` (timed steps, 20), ``BENCH_SCAN`` (steps a
+dispatch, 10), ``S3G_BENCH_SKIP_MULTICAM``, ``S3G_BENCH_SKIP_FULL``
+(skips both 1.5 M workloads, as in ``bench.py``), ``S3G_BENCH_SKIP_RIG``,
+``BENCH_BIG_BUDGET``, ``BENCH_FULL_BIG_BUDGET``, ``BENCH_RIG_BIG_BUDGET``
+and ``BENCH_RIG_MAX_VISIBLE``.  ``BENCH_CHUNK`` is gone: the CUDA
+compositors take their pairs in fixed batches of 128
 (``csrc/composite_common.cuh``) and read no ``RasterConfig.chunk``.
 ``BENCH_FULL_REMAT`` and ``BENCH_RIG_SCAN`` are gone with
 ``remat_deform`` and ``multicam_scan``, which the port does not have.
@@ -73,19 +79,21 @@ import torch
 from s3gaussian_tpu_torch.config import (ModelHiddenParams,
                                          OptimizationParams, PipelineParams,
                                          RasterConfig)
-from s3gaussian_tpu_torch.data.cameras import Camera
+from s3gaussian_tpu_torch.data.cameras import Camera, half_angle_tan
 from s3gaussian_tpu_torch.device import configure_device
 from s3gaussian_tpu_torch.models.deformation import DeformationField
 from s3gaussian_tpu_torch.models.pool import create_from_pcd
 from s3gaussian_tpu_torch.ops import tile_kernels as tk
 from s3gaussian_tpu_torch.ops.transforms import projection_matrix
 from s3gaussian_tpu_torch.render.renderer import render
+from s3gaussian_tpu_torch.train import graphs
 from s3gaussian_tpu_torch.train.trainer import (TrainState, init_state,
-                                                train_step,
-                                                train_step_multicam)
+                                                last_step, train_step,
+                                                train_step_multicam,
+                                                train_steps_scan,
+                                                train_steps_scan_multicam)
 
 H, W = 640, 960
-WARMUP_STEPS = 10
 SPATIAL_LR_SCALE = 30.0
 AABB = [[80.0, 80.0, 80.0], [-80.0, -80.0, -10.0]]
 RIG_SHIFT = 0.5          # frustum rigs: camera b at x = -0.5·b
@@ -203,13 +211,16 @@ class Workload:
         rigs = [None] if spec.multicam <= 1 else range(spec.multicam)
         self._views = [tuple(torch.as_tensor(x, device=dev)
                              for x in rig_view(spec, b)) for b in rigs]
+        self._tan = half_angle_tan(1.0, dev)
+        self._block: List[List[Camera]] = []
 
     def camera(self, view, t: torch.Tensor) -> Camera:
         world_view, full, campos = view
         return Camera(world_view=world_view, full_proj=full, campos=campos,
                       time=t, fovx=1.0, fovy=1.0, image_height=self.h,
                       image_width=self.w, image=self.gt,
-                      depth_map=self.gt_depth)
+                      depth_map=self.gt_depth, tanfovx=self._tan,
+                      tanfovy=self._tan)
 
     def cameras(self, i: int) -> List[Camera]:
         """The camera, or the rig, of step ``i``."""
@@ -217,15 +228,37 @@ class Workload:
                          device=self.bg.device)
         return [self.camera(v, t) for v in self._views]
 
-    def step(self, cams: Sequence[Camera]) -> Dict[str, Any]:
-        """One fine train step on ``cams``; returns its aux."""
-        args = ("fine", 3, self.hp, self.opt, self.pipe, self.cfg,
+    def _args(self) -> tuple:
+        return ("fine", 3, self.hp, self.opt, self.pipe, self.cfg,
                 SPATIAL_LR_SCALE, self.bg)
+
+    def step(self, cams: Sequence[Camera]) -> Dict[str, Any]:
+        """One eager fine train step on ``cams``; returns its aux."""
         if self.spec.multicam > 1:
-            self.state, aux = train_step_multicam(self.state, cams, *args)
+            self.state, aux = train_step_multicam(self.state, cams,
+                                                  *self._args())
         else:
-            self.state, aux = train_step(self.state, cams[0], *args)
+            self.state, aux = train_step(self.state, cams[0], *self._args())
         return aux
+
+    def block(self, n: int, marks: Optional[List[Any]] = None
+              ) -> Dict[str, Any]:
+        """A block of ``n`` fine train steps in one dispatch, step i on
+        ``cameras(i)`` (made once, as ``bench.py`` stacks its block
+        once); returns the last step's ``small_aux``.  On the card
+        ``marks`` receives a CUDA event before the first step and after
+        each."""
+        if len(self._block) != n:
+            self._block = [self.cameras(i) for i in range(n)]
+        if self.spec.multicam > 1:
+            self.state, aux = train_steps_scan_multicam(
+                self.state, self._block, self.spec.multicam, *self._args(),
+                marks=marks)
+        else:
+            self.state, aux = train_steps_scan(
+                self.state, [c[0] for c in self._block], *self._args(),
+                marks=marks)
+        return last_step(aux)
 
     def render(self, tshift: float) -> torch.Tensor:
         """The single camera's image at time 0.4 + ``tshift``, no
@@ -252,39 +285,36 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _timed_steps(wl: Workload, n_steps: int):
-    """``n_steps`` train steps on the host clock; (last aux, seconds, ms of
-    each step: CUDA events on the card, the host clock on the CPU)."""
+def _timed_blocks(wl: Workload, n_blocks: int, scan_n: int):
+    """``n_blocks`` blocks of ``scan_n`` steps on the host clock; (last
+    step's aux, seconds, ms of each step: CUDA events between the replays
+    on the card, a block's host time over its steps on the CPU)."""
     dev = wl.bg.device
-    cams = [wl.cameras(i) for i in range(n_steps)]
     on_card = dev.type == "cuda"
     marks, ms = [], []
     _sync(dev)
     t0 = time.perf_counter()
-    for c in cams:
+    for _ in range(n_blocks):
         if on_card:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            aux = wl.step(c)
-            ev[1].record()
-            marks.append(ev)
+            block_marks: List[Any] = []
+            aux = wl.block(scan_n, block_marks)
+            marks.append(block_marks)
         else:
             t = time.perf_counter()
-            aux = wl.step(c)
-            ms.append((time.perf_counter() - t) * 1e3)
+            aux = wl.block(scan_n)
+            ms += [(time.perf_counter() - t) * 1e3 / scan_n] * scan_n
     _sync(dev)
     seconds = time.perf_counter() - t0
     if on_card:
-        ms = [a.elapsed_time(b) for a, b in marks]
+        ms = [a.elapsed_time(b) for m in marks for a, b in zip(m, m[1:])]
     return aux, seconds, ms
 
 
 def run_workload(spec: Spec, n_steps: int, h: int = H, w: int = W,
                  device: torch.device | str = "cuda") -> Dict[str, Any]:
     """Build ``spec``'s workload and measure it: a warm-up block, then
-    ``n_steps`` timed train steps and, where the spec asks, render fps.
-    Returns the detail dict of its JSON line."""
+    ``n_steps // BENCH_SCAN`` timed blocks (at least one) and, where the
+    spec asks, render fps.  Returns the detail dict of its JSON line."""
     dev = configure_device(str(device))
     on_card = dev.type == "cuda"
     build_s = None
@@ -295,18 +325,21 @@ def run_workload(spec: Spec, n_steps: int, h: int = H, w: int = W,
         torch.cuda.reset_peak_memory_stats(dev)
     wl = Workload(spec, h, w, dev)
     l0 = (tk.launches, tk.bwd_launches)
+    scan_n = max(int(os.environ.get("BENCH_SCAN", "10")), 1)
+    n_blocks = max(n_steps // scan_n, 1)
 
     t0 = time.perf_counter()
-    for i in range(WARMUP_STEPS):
-        wl.step(wl.cameras(i))
+    wl.block(scan_n)
     _sync(dev)
     warmup_s = time.perf_counter() - t0
+    capture_ms = graphs.current().capture_ms if on_card else None
 
     lt = (tk.launches, tk.bwd_launches)
-    aux, seconds, ms = _timed_steps(wl, n_steps)
-    per_step = [(tk.launches - lt[0]) / n_steps,
-                (tk.bwd_launches - lt[1]) / n_steps]
-    it_per_s = n_steps / seconds
+    aux, seconds, ms = _timed_blocks(wl, n_blocks, scan_n)
+    total = n_blocks * scan_n
+    per_step = [(tk.launches - lt[0]) / total,
+                (tk.bwd_launches - lt[1]) / total]
+    it_per_s = total / seconds
     overflow_pairs = int(aux["overflow_pairs"])
     if overflow_pairs != 0:
         raise RuntimeError(
@@ -319,7 +352,10 @@ def run_workload(spec: Spec, n_steps: int, h: int = H, w: int = W,
     out: Dict[str, Any] = {
         "backend": card_line() if on_card else "cpu",
         "build_s": build_s,
+        "steps_per_dispatch": scan_n,
         "warmup_s": round(warmup_s, 3),
+        "capture_ms": (round(capture_ms, 3) if capture_ms is not None
+                       else None),
         "it_per_s": round(it_per_s, 4),
         "step_ms_median": round(float(np.median(ms)), 3),
         "step_ms_min": round(min(ms), 3),
@@ -333,12 +369,13 @@ def run_workload(spec: Spec, n_steps: int, h: int = H, w: int = W,
     }
     if spec.multicam > 1:
         out["cams_per_s"] = round(it_per_s * spec.multicam, 4)
+    graphs.release()
     if spec.render_fps:
         float(wl.render(0.0).reshape(-1)[:4].sum())
         t0 = time.perf_counter()
-        for i in range(n_steps):
+        for i in range(total):
             float(wl.render(1e-6 * i).reshape(-1)[:4].sum())
-        out["render_fps"] = round(n_steps / (time.perf_counter() - t0), 3)
+        out["render_fps"] = round(total / (time.perf_counter() - t0), 3)
     out["launches"] = [tk.launches - l0[0], tk.bwd_launches - l0[1]]
     out["launches_per_step"] = per_step
     return out
@@ -359,6 +396,7 @@ def _detail(spec: Spec, n_steps: int, h: int, w: int, device: str
         _emit({spec.key: {"error": str(e)[:300]}}, sys.stderr)
         return None
     finally:
+        graphs.release()
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
     if spec.key == "detail_waymo_scale":

@@ -2,7 +2,8 @@
 
 A ``Camera`` is a plain dataclass of tensors: the row-vector view and
 full-projection transforms the rasterizer consumes, the camera centre,
-the frame time, the supervision rasters (the RGB image, the sparse LiDAR
+the frame time, the half-angle tangents of the field of view, the
+supervision rasters (the RGB image, the sparse LiDAR
 depth, the DINO feature map), the masks (dynamic, sky, semantic,
 instance, SAM) and its ids.  Every tensor lives on the device the caller
 names; the readers keep a clip's images there.
@@ -11,7 +12,6 @@ names; the readers keep a clip's images there.
 from __future__ import annotations
 
 import json
-import math
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -45,14 +45,25 @@ class Camera:
     uid: int = 0
     cam_idx: int = 0
     frame_idx: int = 0
+    # tan(fov/2) as 0-d float32 tensors on the camera's device, made from
+    # fovx/fovy unless given: what differs between cameras reaches the
+    # train step as a tensor, so a captured step serves every camera (the
+    # JAX Camera's fov leaves)
+    tanfovx: Optional[torch.Tensor] = None
+    tanfovy: Optional[torch.Tensor] = None
 
-    @property
-    def tanfovx(self) -> float:
-        return math.tan(self.fovx * 0.5)
+    def __post_init__(self):
+        dev = self.world_view.device
+        if self.tanfovx is None:
+            self.tanfovx = half_angle_tan(self.fovx, dev)
+        if self.tanfovy is None:
+            self.tanfovy = half_angle_tan(self.fovy, dev)
 
-    @property
-    def tanfovy(self) -> float:
-        return math.tan(self.fovy * 0.5)
+
+def half_angle_tan(fov: float, device: torch.device | str) -> torch.Tensor:
+    """tan(fov/2) in float32, as the JAX Camera computes it from its
+    float32 leaf."""
+    return torch.tan(torch.tensor(fov, dtype=torch.float32) * 0.5).to(device)
 
 
 def make_camera(R: np.ndarray, T: np.ndarray, fovx: float, fovy: float,

@@ -107,6 +107,14 @@ def _peri_table(rect_w: int, rect_h: int) -> np.ndarray:
     return np.asarray(rows, np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _peri_table_on(rect_w: int, rect_h: int,
+                   device: torch.device) -> torch.Tensor:
+    """``_peri_table`` on ``device``, copied there once: a captured step
+    may not copy from the host."""
+    return torch.from_numpy(_peri_table(rect_w, rect_h)).to(device)
+
+
 def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
                    max_visible: int, rect_w: int, rect_h: int,
                    tile_x: int = 16, tile_y: int = 16,
@@ -211,7 +219,7 @@ def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
         n_demoted = (is_big & ~granted).sum()
         bsl = torch.sort((~granted).to(torch.int32), stable=True).indices[:nb]
         bgranted = granted[bsl]         # masks the tail when < nb bigs
-        table = torch.from_numpy(_peri_table(rect_w, rect_h)).to(dev)
+        table = _peri_table_on(rect_w, rect_h, dev)
         # the clip guards the non-granted tail, whose rects may be junk
         tidx = torch.clamp((y0s - y0c)[bsl] * (rect_w - 1)
                            + (x0s - x0c)[bsl], 0, table.shape[0] - 1).long()

@@ -13,7 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from s3gaussian_tpu_torch.ops.sh import eval_sh
+from s3gaussian_tpu_torch.ops.sh import eval_sh, eval_sh_dynamic
 
 
 class ProjectedGaussians(NamedTuple):
@@ -56,8 +56,8 @@ def project_gaussians(
     cov3d: torch.Tensor,
     view: torch.Tensor,
     proj: torch.Tensor,
-    tanfovx: float,
-    tanfovy: float,
+    tanfovx: float | torch.Tensor,
+    tanfovy: float | torch.Tensor,
     width: int,
     height: int,
     tile_x: int = 16,
@@ -90,9 +90,10 @@ def project_gaussians(
     ndc_xy = p_hom[..., :2] * p_w[..., None]
     if mean2d_tap is not None:
         ndc_xy = ndc_xy + mean2d_tap
-    sizes = torch.tensor([width, height], dtype=means3d.dtype,
-                         device=means3d.device)
-    xy = ((ndc_xy + 1.0) * sizes - 1.0) * 0.5
+    # the image size as Python scalars: a tensor made from host values
+    # here would be a host-to-device copy in every step
+    xy = (torch.stack([(ndc_xy[..., 0] + 1.0) * width,
+                       (ndc_xy[..., 1] + 1.0) * height], -1) - 1.0) * 0.5
 
     # EWA: cov2d = J W Σ Wᵀ Jᵀ, scalarized.  view[:3,:3] is R_w2c^T.
     Rw2c = view[:3, :3].T
@@ -171,12 +172,20 @@ def project_gaussians(
 
 
 def sh_to_color(shs: torch.Tensor, means3d: torch.Tensor,
-                campos: torch.Tensor, active_degree: int) -> torch.Tensor:
+                campos: torch.Tensor,
+                active_degree: int | torch.Tensor) -> torch.Tensor:
     """SH [N, K, 3] -> clamped RGB along the view direction
-    (``clamp_min(eval_sh(deg, sh, dir) + 0.5, 0)``)."""
+    (``clamp_min(eval_sh(deg, sh, dir) + 0.5, 0)``).  A Python degree
+    evaluates its bands alone; a 0-d tensor degree (the captured train
+    step's) band-masks a full evaluation (``eval_sh_dynamic``)."""
     dirs = means3d - campos[None, :]
     # clamped norm: dead pool slots can sit exactly at the camera origin
     dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True),
                               min=1e-8)
-    rgb = eval_sh(active_degree, shs.transpose(-1, -2), dirs)
+    sh_view = shs.transpose(-1, -2)
+    if isinstance(active_degree, torch.Tensor):
+        rgb = eval_sh_dynamic(active_degree, sh_view, dirs,
+                              max_deg=int(round(shs.shape[-2] ** 0.5)) - 1)
+    else:
+        rgb = eval_sh(active_degree, sh_view, dirs)
     return torch.clamp(rgb + 0.5, min=0.0)

@@ -43,8 +43,8 @@ class RasterSettings(NamedTuple):
 
     image_height: int
     image_width: int
-    tanfovx: float
-    tanfovy: float
+    tanfovx: float | torch.Tensor   # a float or a 0-d tensor
+    tanfovy: float | torch.Tensor
     bg: torch.Tensor            # [3]
     scale_modifier: float
     viewmatrix: torch.Tensor    # [4,4] row-vector W2C^T

@@ -1,6 +1,7 @@
 """Real spherical-harmonics evaluation, degrees 0-3 (port of
 ``s3gaussian_tpu/ops/sh.py``; PlenOctree constants of the reference's
-``utils/sh_utils.py``)."""
+``utils/sh_utils.py``): ``eval_sh`` at a Python degree, and
+``eval_sh_dynamic`` at a degree held in a tensor."""
 
 from __future__ import annotations
 
@@ -46,6 +47,17 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
                           + C3[5] * z * (xx - yy) * sh[..., 14]
                           + C3[6] * x * (xx - 3 * yy) * sh[..., 15])
     return result
+
+
+def eval_sh_dynamic(deg: torch.Tensor, sh: torch.Tensor, dirs: torch.Tensor,
+                    max_deg: int = 3) -> torch.Tensor:
+    """``eval_sh`` at a degree held in a tensor: the coefficients of the
+    bands above ``deg`` are masked to zero before a full ``max_deg``
+    evaluation, so one captured step serves every degree of a stage."""
+    coeff = (max_deg + 1) ** 2
+    bands = torch.arange(coeff, device=sh.device).float().sqrt().floor()
+    mask = (bands <= deg).to(sh.dtype)
+    return eval_sh(max_deg, sh[..., :coeff] * mask, dirs)
 
 
 def RGB2SH(rgb):

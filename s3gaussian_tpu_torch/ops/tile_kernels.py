@@ -40,9 +40,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel launches made by composite_fwd / composite_bwd (CPU calls do not
-# count)
+# count).  A launch made while the stream captures a CUDA graph runs only
+# when the graph is replayed: it goes to ``captured`` instead, and the
+# graph's owner (train/graphs.py) adds what it captured once per replay
+# through ``count_replay``
 launches = 0
 bwd_launches = 0
+captured = [0, 0]
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # The launch geometry both kernels are compiled for
@@ -165,6 +169,25 @@ def _load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def _count(kind: int) -> None:
+    """One launch of the forward (0) or backward (1) kernel."""
+    global launches, bwd_launches
+    if torch.cuda.is_current_stream_capturing():
+        captured[kind] += 1
+    elif kind == 0:
+        launches += 1
+    else:
+        bwd_launches += 1
+
+
+def count_replay(fwd: int, bwd: int) -> None:
+    """A replay of a CUDA graph that captured ``fwd`` forward and ``bwd``
+    backward launches launched them again."""
+    global launches, bwd_launches
+    launches += fwd
+    bwd_launches += bwd
+
+
 def _check_stream(name: str, pair_feat: torch.Tensor,
                   tile_starts: torch.Tensor, grid_x: int, grid_y: int,
                   tile_x: int, tile_y: int) -> None:
@@ -219,8 +242,7 @@ def composite_fwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error "
                            f"{err}")
-    global launches
-    launches += 1
+    _count(0)
     return out
 
 
@@ -260,8 +282,7 @@ def composite_bwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
                            f"{err}")
-    global bwd_launches
-    bwd_launches += 1
+    _count(1)
     return grads
 
 

@@ -26,10 +26,13 @@ flat int32 MAX bucket (radii, visibility, counters), in the same order on
 every rank; only ``all_reduce`` and ``broadcast`` are used, so the same
 code runs on NCCL and on gloo.
 
-The JAX module's scanned variants (``make_parallel_train_steps_scan``,
-``..._multicam``) have no counterpart: a scanned block of N steps equals N
-of these steps, which a caller loops.  ``make_mesh`` and the
-``shard_camera_*`` helpers have none either: the process group is the
+``parallel_train_steps_scan`` and ``..._multicam`` (JAX's
+``make_parallel_train_steps_scan[_multicam]``) run a block of N of these
+steps: on the card as N replays of the step captured as one CUDA graph,
+its two all-reduces inside (``train/graphs.py``), which needs NCCL; with
+a gloo group on the card they raise, as gloo's collectives cannot be
+captured.  On the CPU they loop the eager step.  ``make_mesh`` and the
+``shard_camera_*`` helpers have no counterpart: the process group is the
 mesh, and each rank keeps only its own cameras
 (``multihost.local_batch_slice``).
 """
@@ -49,7 +52,8 @@ from s3gaussian_tpu_torch.parallel.multihost import rank_world
 from s3gaussian_tpu_torch.train.checkpoints import state_tensors
 from s3gaussian_tpu_torch.train.trainer import (TrainState,
                                                 apply_param_update,
-                                                rig_stats, step_forward,
+                                                rig_stats, scan_steps,
+                                                step_forward,
                                                 step_gradients)
 
 COUNTERS = ("n_pairs", "overflow_rect", "overflow_visible", "overflow_pairs")
@@ -166,6 +170,53 @@ def parallel_train_step_multicam(state: TrainState,
     tap_term, vis_count = rig_stats(tap_grad, aux, len(cameras), opt)
     return reduced_update(state, grads, tap_term, vis_count, loss, aux, opt,
                           spatial_lr_scale, lr_scale=opt.multicam_lr_scale)
+
+
+def _capturable(state: TrainState) -> None:
+    if (state.pool.xyz.device.type == "cuda"
+            and dist.get_backend() != "nccl"):
+        raise RuntimeError(
+            f"a data-parallel block on the card captures its all-reduces "
+            f"in a CUDA graph, which needs NCCL, not "
+            f"{dist.get_backend()}: run steps one by one "
+            f"(--steps_per_dispatch 1)")
+
+
+def parallel_train_steps_scan(state: TrainState, cameras: Sequence[Camera],
+                              stage: str, active_sh_degree: int,
+                              hp: ModelHiddenParams, opt: OptimizationParams,
+                              pipe: PipelineParams, cfg: RasterConfig,
+                              spatial_lr_scale: float, bg: torch.Tensor,
+                              marks: Optional[List[Any]] = None
+                              ) -> Tuple[TrainState, Dict[str, Any]]:
+    """``len(cameras)`` data-parallel steps in one dispatch, this rank's
+    camera of each (JAX's ``make_parallel_train_steps_scan``): what as
+    many ``parallel_train_step`` calls compute.  Returns the state and
+    the reduced ``small_aux`` of every step, stacked."""
+    _capturable(state)
+    return scan_steps(parallel_train_step, state, list(cameras), stage,
+                      active_sh_degree, hp, opt, pipe, cfg, spatial_lr_scale,
+                      bg, marks)
+
+
+def parallel_train_steps_scan_multicam(
+        state: TrainState, rigs: Sequence[Sequence[Camera]], n_cams: int,
+        stage: str, active_sh_degree: int, hp: ModelHiddenParams,
+        opt: OptimizationParams, pipe: PipelineParams, cfg: RasterConfig,
+        spatial_lr_scale: float, bg: torch.Tensor,
+        marks: Optional[List[Any]] = None
+        ) -> Tuple[TrainState, Dict[str, Any]]:
+    """``len(rigs)`` data-parallel rig steps of ``n_cams`` cameras a rank
+    in one dispatch (JAX's ``make_parallel_train_steps_scan_multicam``):
+    what as many ``parallel_train_step_multicam`` calls compute."""
+    rigs = [list(r) for r in rigs]
+    if any(len(r) != n_cams for r in rigs):
+        raise ValueError(f"rigs of {[len(r) for r in rigs]} cameras for "
+                         f"n_cams={n_cams}")
+    _capturable(state)
+    return scan_steps(parallel_train_step_multicam, state, rigs, stage,
+                      active_sh_degree, hp, opt, pipe, cfg, spatial_lr_scale,
+                      bg, marks)
 
 
 @torch.no_grad()

@@ -55,10 +55,17 @@ def _gauss1d(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _window_on(window_size: int, device: torch.device) -> torch.Tensor:
+    """The 1-D window on ``device``, copied there once: a captured step
+    may not copy from the host."""
+    return torch.from_numpy(_gauss1d(window_size)).to(device)
+
+
 def _blur(x: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     """Separable gaussian blur of [B, C, H, W], zero padded."""
     c = x.shape[1]
-    g = torch.from_numpy(_gauss1d(window_size)).to(x.device)
+    g = _window_on(window_size, x.device)
     pad = window_size // 2
     x = F.conv2d(x, g.reshape(1, 1, -1, 1).expand(c, 1, -1, 1),
                  padding=(pad, 0), groups=c)

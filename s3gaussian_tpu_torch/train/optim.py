@@ -8,7 +8,8 @@ the parameter dict ``{"pool": {...}, "deform": {...}}`` and ``count`` is
 global, so density control can edit rows of the moments and the NaN
 watchdog can zero a learning rate on the device without a host sync.
 Learning rates are 0-d device tensors, one per group.  The update is in
-place, with ``torch._foreach_*`` over all tensors at once.
+place, count included, with ``torch._foreach_*`` over all tensors at
+once.
 """
 
 from __future__ import annotations
@@ -61,11 +62,11 @@ def _flat(tree: Params, like: Params) -> List[torch.Tensor]:
 @torch.no_grad()
 def adam_update(params: Params, grads: Params, state: AdamState,
                 lr_for: Callable[[str, str], torch.Tensor]) -> AdamState:
-    """One Adam step, in place on ``params`` and the moments.
+    """One Adam step, in place on ``params``, the moments and ``count``.
     ``lr_for(group, name)`` gives each tensor its group's learning rate
     (a 0-d tensor on the parameters' device)."""
-    count = state.count + 1
-    cf = count.to(torch.float32)
+    state.count.add_(1)
+    cf = state.count.to(torch.float32)
     c1 = 1 - torch.pow(B1, cf)
     c2 = 1 - torch.pow(B2, cf)
     p, g = _flat(params, params), _flat(grads, params)
@@ -81,4 +82,4 @@ def adam_update(params: Params, grads: Params, state: AdamState,
     lrs = [lr_for(grp, name) for grp, d in params.items() for name in d]
     step = torch._foreach_mul(torch._foreach_div(mhat, denom), lrs)
     torch._foreach_sub_(p, step)
-    return AdamState(mu=state.mu, nu=state.nu, count=count)
+    return state

@@ -2,7 +2,8 @@
 (port of ``s3gaussian_tpu/train/trainer.py``: ``TrainState``,
 ``init_state``, ``reinit_optimizer``, ``lr_dict``, ``compute_loss``,
 ``compute_loss_multicam``, ``apply_param_update``, ``train_step``,
-``train_step_multicam``, density control and ``probe_pool``).
+``train_step_multicam``, ``train_steps_scan``,
+``train_steps_scan_multicam``, density control and ``probe_pool``).
 
   loss = L1(rgb)
        + λ_dx·mean|dx| + λ_dshs·mean|dshs|              (fine)
@@ -11,21 +12,27 @@
        + λ_dssim·(1−SSIM)
        + λ_feat·L2(feat, dino_gt)                       (fine, feat_head)
 
-A step is an eager call (``jit``, donation and ``lax.scan`` have no
-counterpart): render forward and backward through the CUDA compositors,
-the losses, dead-row gradient masking, the NaN watchdog, the scheduled
-per-group Adam and the densification statistics fed by the gradient of
-the ``mean2d_tap``.  The state's tensors are updated in place; the step
-returns the state with its new counters.  The rig step evaluates the
-field once for the rig's cameras and pools the losses over the stacked
-renders.  ``densify_step`` and ``opacity_reset_step`` edit the pool's
-rows and their Adam moments and return a new state.  JAX's scanned
-steps (``train_steps_scan*``) have no counterpart: a caller loops these.
+A step (``train_step``, ``train_step_multicam``) is an eager call:
+render forward and backward through the CUDA compositors, the losses,
+dead-row gradient masking, the NaN watchdog, the scheduled per-group
+Adam and the densification statistics fed by the gradient of the
+``mean2d_tap``.  It writes every output into the state's own tensors
+(parameters, moments, ``count``, statistics, ``step``, ``nan_skips``),
+as donation does in JAX, and returns that state.  The rig step
+evaluates the field once for the rig's cameras and pools the losses
+over the stacked renders.  ``densify_step`` and ``opacity_reset_step``
+edit the pool's rows and their Adam moments and return a new state.
+
+``train_steps_scan`` and ``train_steps_scan_multicam`` run a block of
+steps, JAX's unit of dispatch: on the card N replays of the step
+captured as one CUDA graph (``train/graphs.py``), with no host read in
+between; on the CPU a loop of the eager step.  Both return the state
+and the per-step ``small_aux`` stacked on a leading step axis.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -97,7 +104,9 @@ def lr_dict(step: torch.Tensor, opt: OptimizationParams,
     s = spatial_lr_scale
 
     def const(v):
-        return torch.tensor(v, dtype=torch.float32, device=step.device)
+        # a fill on the device: a tensor made from a host value would be
+        # a host-to-device copy in every step
+        return torch.full((), v, dtype=torch.float32, device=step.device)
 
     return {
         "xyz": expon_lr(step, opt.position_lr_init * s,
@@ -232,8 +241,10 @@ def apply_param_update(state: TrainState, grads, tap_grad: torch.Tensor,
                        vis_count: Optional[torch.Tensor] = None
                        ) -> TrainState:
     """Post-gradient half of a step: dead-row gradient masking, the NaN
-    watchdog, the scheduled learning rates times ``lr_scale``, Adam (in
-    place) and the densification statistics.  With ``vis_count`` (the
+    watchdog, the scheduled learning rates times ``lr_scale``, Adam and
+    the densification statistics, all written into ``state``'s own
+    tensors (a captured step's next replay reads what this one wrote, at
+    the same addresses); returns ``state``.  With ``vis_count`` (the
     rig step's per-camera statistics) ``tap_grad`` is the precomputed
     per-Gaussian sum of the cameras' screen-gradient norms [Nc] and
     ``vis_count`` the denominator's increment."""
@@ -256,8 +267,8 @@ def apply_param_update(state: TrainState, grads, tap_grad: torch.Tensor,
     lrs = {k: v * fin for k, v in
            lr_dict(state.step, opt, spatial_lr_scale).items()}
     params = param_tree(state.pool, state.deform)
-    adam = adam_update(params, grads, state.adam,
-                       lambda group, name: lrs[path_group(group, name)])
+    adam_update(params, grads, state.adam,
+                lambda group, name: lrs[path_group(group, name)])
     if vis_count is None:
         stats = add_densification_stats(state.stats, tap_grad, radii,
                                         visible)
@@ -265,8 +276,11 @@ def apply_param_update(state: TrainState, grads, tap_grad: torch.Tensor,
         stats = add_densification_stats(state.stats, None, radii, visible,
                                         grad_norm=tap_grad,
                                         denom_inc=vis_count)
-    return replace(state, adam=adam, stats=stats, step=state.step + 1,
-                   nan_skips=state.nan_skips + (~finite).to(torch.int32))
+    for f in fields(stats):
+        getattr(state.stats, f.name).copy_(getattr(stats, f.name))
+    state.step.add_(1)
+    state.nan_skips.add_((~finite).to(torch.int32))
+    return state
 
 
 def step_forward(state: TrainState, camera: Camera | Sequence[Camera],
@@ -363,6 +377,95 @@ def train_step_multicam(state: TrainState, cameras: Sequence[Camera],
     grads, tap_grad = step_gradients(loss, tree, tap)
     return rig_update(state, grads, tap_grad, loss.detach(), aux,
                       len(cameras), opt, spatial_lr_scale), aux
+
+
+def small_aux(aux: Dict[str, Any]) -> Dict[str, Any]:
+    """The per-step scalars a block of steps returns (JAX's
+    ``_small_aux``): the metrics, the pair count, the three overflow
+    counters, and of the screen radii the largest visible one and the
+    number of visible ones above 20 px, the size-prune threshold."""
+    radii = aux["radii"].to(torch.float32)
+    vis = aux["visible"]
+    out = {"metrics": dict(aux["metrics"])}
+    out.update({k: aux[k] for k in ("n_pairs", "overflow_rect",
+                                     "overflow_visible", "overflow_pairs")})
+    out["radii_max"] = torch.where(vis, radii, 0.0).amax()
+    out["n_r20"] = ((radii > 20.0) & vis).sum(dtype=torch.int32)
+    return out
+
+
+def stack_aux(rows: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
+    """``small_aux`` of each step stacked on a leading step axis."""
+    out = {k: torch.stack([r[k] for r in rows]) for k in rows[0]
+           if k != "metrics"}
+    out["metrics"] = {k: torch.stack([r["metrics"][k] for r in rows])
+                      for k in rows[0]["metrics"]}
+    return out
+
+
+def last_step(aux: Dict[str, Any]) -> Dict[str, Any]:
+    """The last step's row of a block's stacked ``small_aux``."""
+    return {k: ({m: x[-1] for m, x in v.items()} if k == "metrics"
+                else v[-1]) for k, v in aux.items()}
+
+
+def scan_steps(step, state: TrainState, views: Sequence, stage: str,
+               active_sh_degree: int, hp: ModelHiddenParams,
+               opt: OptimizationParams, pipe: PipelineParams,
+               cfg: RasterConfig, spatial_lr_scale: float, bg: torch.Tensor,
+               marks: Optional[List[Any]] = None
+               ) -> Tuple[TrainState, Dict[str, Any]]:
+    """A block of ``step``s (``train_step``, ``train_step_multicam`` or
+    their data-parallel forms), one a view of ``views``: on the card
+    replays of the step's CUDA graph (``graphs.replay_steps``, where
+    ``marks`` receives a CUDA event recorded before the first step and
+    after each), elsewhere a loop of the eager step.  Returns the state
+    and the ``small_aux`` of every step, stacked."""
+    if state.pool.xyz.device.type == "cuda":
+        from s3gaussian_tpu_torch.train.graphs import replay_steps
+        return replay_steps(step, state, views, stage, active_sh_degree, hp,
+                            opt, pipe, cfg, spatial_lr_scale, bg, marks)
+    rows = []
+    for view in views:
+        state, aux = step(state, view, stage, active_sh_degree, hp, opt,
+                          pipe, cfg, spatial_lr_scale, bg)
+        rows.append(small_aux(aux))
+    return state, stack_aux(rows)
+
+
+def train_steps_scan(state: TrainState, cameras: Sequence[Camera],
+                     stage: str, active_sh_degree: int,
+                     hp: ModelHiddenParams, opt: OptimizationParams,
+                     pipe: PipelineParams, cfg: RasterConfig,
+                     spatial_lr_scale: float, bg: torch.Tensor,
+                     marks: Optional[List[Any]] = None
+                     ) -> Tuple[TrainState, Dict[str, Any]]:
+    """``len(cameras)`` train steps in one dispatch, one camera each (JAX's
+    ``train_steps_scan``): what as many ``train_step`` calls compute."""
+    return scan_steps(train_step, state, list(cameras), stage,
+                      active_sh_degree, hp, opt, pipe, cfg, spatial_lr_scale,
+                      bg, marks)
+
+
+def train_steps_scan_multicam(state: TrainState,
+                              rigs: Sequence[Sequence[Camera]], n_cams: int,
+                              stage: str, active_sh_degree: int,
+                              hp: ModelHiddenParams,
+                              opt: OptimizationParams, pipe: PipelineParams,
+                              cfg: RasterConfig, spatial_lr_scale: float,
+                              bg: torch.Tensor,
+                              marks: Optional[List[Any]] = None
+                              ) -> Tuple[TrainState, Dict[str, Any]]:
+    """``len(rigs)`` rig steps of ``n_cams`` same-time cameras in one
+    dispatch (JAX's ``train_steps_scan_multicam``): what as many
+    ``train_step_multicam`` calls compute."""
+    rigs = [list(r) for r in rigs]
+    if any(len(r) != n_cams for r in rigs):
+        raise ValueError(f"rigs of {[len(r) for r in rigs]} cameras for "
+                         f"n_cams={n_cams}")
+    return scan_steps(train_step_multicam, state, rigs, stage,
+                      active_sh_degree, hp, opt, pipe, cfg, spatial_lr_scale,
+                      bg, marks)
 
 
 def _pool_rows(state: TrainState) -> Dict[str, Tuple[torch.Tensor, ...]]:

@@ -16,9 +16,18 @@ training snapshots, checkpoints, a final PLY and the evaluation sweep
 (``eval/video.py::do_evaluation``: at iteration 30000 and after
 training, unless ``--skip_final_eval``).  ``--eval_only`` restores the
 latest checkpoint under ``--model_path`` and runs only the sweep.  The
-flags are those of ``train.py`` but ``--steps_per_dispatch`` (a scanned
-block of steps has no counterpart here) and the TPU-only fields of the
-config groups.
+flags are those of ``train.py`` but the TPU-only fields of the config
+groups.
+
+``--steps_per_dispatch N`` (default 10) follows ``train.py``'s rule: a
+block of N steps runs in one dispatch (``trainer.train_steps_scan``,
+``..._multicam`` or their data-parallel forms) unless a host event
+(log, densify, opacity reset, checkpoint, snapshot, evaluation, the end
+of ``--bench_iters``) falls after one of its first N-1 steps or an SH
+degree bump inside it; the logger then reads the block's last step.  On
+the card a block is N replays of the step captured as one CUDA graph,
+and a step outside a block replays the same graph; on the CPU both are
+eager steps.
 
 ``--batch_size B > 1`` trains data-parallel, one process per device on
 ``torch.distributed`` (``parallel/``): each of the B ranks takes one
@@ -32,7 +41,9 @@ Before it reads the scene it refuses a single process that sees at least
 B cards (it names the torchrun command), and a process group whose world
 size is not B.  With fewer devices than B it prints ``train.py``'s note
 and trains with batch size 1, as ``train.py`` does.  Training snapshots
-are skipped with more than one rank.
+are skipped with more than one rank.  On the card a data-parallel block
+captures its all-reduces, which needs NCCL: with a gloo group there it
+refuses ``--steps_per_dispatch`` above 1.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from s3gaussian_tpu_torch.config import (ModelHiddenParams, ModelParams,
                                          OptimizationParams, PipelineParams,
@@ -59,18 +71,24 @@ from s3gaussian_tpu_torch.device import configure_device
 from s3gaussian_tpu_torch.eval.video import do_evaluation
 from s3gaussian_tpu_torch.models.deformation import DeformationField
 from s3gaussian_tpu_torch.parallel.data_parallel import (
-    parallel_train_step, parallel_train_step_multicam, replicate_state)
+    parallel_train_step, parallel_train_step_multicam,
+    parallel_train_steps_scan, parallel_train_steps_scan_multicam,
+    replicate_state)
 from s3gaussian_tpu_torch.parallel.multihost import (init_multihost,
                                                      is_primary,
                                                      local_batch_slice,
                                                      sync_hosts)
 from s3gaussian_tpu_torch.train import checkpoints as ckpt
+from s3gaussian_tpu_torch.train import graphs
 from s3gaussian_tpu_torch.train.trainer import (densify_schedule,
                                                 densify_step, init_state,
                                                 opacity_reset_step,
-                                                probe_pool, reinit_optimizer,
-                                                train_step,
-                                                train_step_multicam)
+                                                last_step, probe_pool,
+                                                reinit_optimizer,
+                                                small_aux, train_step,
+                                                train_step_multicam,
+                                                train_steps_scan,
+                                                train_steps_scan_multicam)
 
 MID_EVAL_ITER = 30000
 
@@ -142,6 +160,21 @@ def parallel_refusal(batch_size: int, world: int,
     return None
 
 
+def dispatch_refusal(steps_per_dispatch: int, device: torch.device,
+                     backend: Optional[str]) -> Optional[str]:
+    """Why ``--steps_per_dispatch`` cannot run, or None: on the card a
+    block of data-parallel steps is a captured CUDA graph with its
+    all-reduces inside, which NCCL can be captured into and gloo
+    cannot (``backend`` is the process group's, None without one)."""
+    if (steps_per_dispatch > 1 and device.type == "cuda"
+            and backend not in (None, "nccl")):
+        return (f"--steps_per_dispatch {steps_per_dispatch} replays the "
+                f"step as a CUDA graph, whose all-reduces {backend} cannot "
+                f"be captured into: pass --steps_per_dispatch 1, or run "
+                f"on NCCL")
+    return None
+
+
 def snapshot_due(iteration: int) -> bool:
     """The training-snapshot cadence (reference train.py:477-487)."""
     return ((iteration < 10000 and iteration % 1000 == 999)
@@ -170,6 +203,10 @@ def main(argv=None, device: str = "cuda"):
     parser.add_argument("--prior_checkpoint", type=str, default=None)
     parser.add_argument("--bench_iters", type=int, default=0,
                         help="run only N timed iterations per stage")
+    parser.add_argument("--steps_per_dispatch", type=int, default=10,
+                        help="run up to N train steps per dispatch, on "
+                             "the card as replays of one CUDA graph "
+                             "(1 = step-by-step)")
     args = parser.parse_args(argv)
 
     model = extract_group(ModelParams, args)
@@ -184,6 +221,11 @@ def main(argv=None, device: str = "cuda"):
     rank, world = init_multihost(device=device)
     why = parallel_refusal(opt.batch_size, world,
                            visible_devices(torch.device(device)))
+    if why:
+        raise SystemExit(f"train_cli: {why}")
+    backend = dist.get_backend() if world > 1 else None
+    why = dispatch_refusal(args.steps_per_dispatch, torch.device(device),
+                           backend)
     if why:
         raise SystemExit(f"train_cli: {why}")
     use_parallel = opt.batch_size > 1 and world >= opt.batch_size
@@ -255,7 +297,13 @@ def main(argv=None, device: str = "cuda"):
             model.model_path, state, "--eval_only")
         print(f"--eval_only: restored {path} ({start_stage}:{start_iter})")
 
+    # blocks, and on the card every step, replay the captured step
+    # (the CPU and a gloo group on the card take eager steps outside
+    # blocks)
+    replay = dev.type == "cuda" and backend in (None, "nccl")
+
     def evaluate(stage, step, st):
+        graphs.release()      # the captured step's memory goes first
         eval_dir = os.path.join(model.model_path, "eval")
         os.makedirs(eval_dir, exist_ok=True)
         return do_evaluation(
@@ -325,26 +373,70 @@ def main(argv=None, device: str = "cuda"):
                    else random.choices(g, k=mc))
             return [cams[i] for i in idx]
 
+        def event_after(i):
+            """Host work runs after step i (log, densify, reset,
+            checkpoint, evaluation, snapshot, the end of --bench_iters):
+            a block must end there (train.py's rule)."""
+            if i % log_every == 0 or i == first_iter or i == MID_EVAL_ITER:
+                return True
+            if i in args.checkpoint_iterations:
+                return True
+            if i < opt.densify_until_iter and (
+                    (i > opt.densify_from_iter
+                     and i % opt.densification_interval == 0)
+                    or i % opt.opacity_reset_interval == 0):
+                return True
+            if (opt.prune_after_densify and i >= opt.densify_until_iter
+                    and i % opt.densification_interval == 0):
+                return True
+            if (model.render_process and not args.bench_iters
+                    and snapshot_due(i)):
+                return True
+            return bool(args.bench_iters
+                        and n_done + (i - iteration) >= args.bench_iters)
+
+        if use_parallel:
+            step, scan = ((parallel_train_step_multicam,
+                           parallel_train_steps_scan_multicam) if mc > 1
+                          else (parallel_train_step,
+                                parallel_train_steps_scan))
+        else:
+            step, scan = ((train_step_multicam, train_steps_scan_multicam)
+                          if mc > 1 else (train_step, train_steps_scan))
+        pop = pop_group if mc > 1 else pop_cam
+        spd = max(int(args.steps_per_dispatch), 1)
         iteration = first_iter
         while iteration <= final_iter:
             if iteration % 1000 == 0:
                 active_sh = min(active_sh + 1, model.sh_degree)
-            pop = pop_group if mc > 1 else pop_cam
+            # a block of spd steps in one dispatch when no host event
+            # and no SH bump falls inside it
+            block_ok = (spd > 1 and iteration + spd - 1 <= final_iter
+                        and not any(event_after(iteration + j)
+                                    for j in range(spd - 1))
+                        and not any((iteration + j) % 1000 == 0
+                                    for j in range(1, spd)))
+            n = spd if block_ok else 1
             if use_parallel:
-                step = (parallel_train_step_multicam if mc > 1
-                        else parallel_train_step)
-                (view,) = [pop() for _ in range(opt.batch_size)][b_lo:b_hi]
+                views = [[pop() for _ in range(opt.batch_size)][b_lo:b_hi][0]
+                         for _ in range(n)]
             else:
-                step = train_step_multicam if mc > 1 else train_step
-                view = pop()
-            state, aux = step(state, view, stage, active_sh, hyper, opt,
-                              pipe, cfg, scene.cameras_extent, bg)
-            n_done += 1
+                views = [pop() for _ in range(n)]
+            common = (stage, active_sh, hyper, opt, pipe, cfg,
+                      scene.cameras_extent, bg)
+            if block_ok or replay:
+                state, aux = (scan(state, views, mc, *common) if mc > 1
+                              else scan(state, views, *common))
+                aux = last_step(aux)
+            else:
+                state, aux = step(state, views[0], *common)
+                aux = small_aux(aux)
+            n_done += n
+            iteration += n - 1
 
             if iteration % log_every == 0 or iteration == first_iter:
                 m = {k: float(v) for k, v in aux["metrics"].items()}
                 ema_loss = 0.4 * m["loss"] + 0.6 * ema_loss
-                vis_radii = aux["radii"].to(torch.float32) * aux["visible"]
                 entry = {"step": iteration, "stage": stage,
                          "Loss": round(ema_loss, 7),
                          "psnr": round(m["psnr"], 2),
@@ -356,8 +448,8 @@ def main(argv=None, device: str = "cuda"):
                          "nan_skips": int(state.nan_skips),
                          "it_per_s": round(n_done / (time.time() - t_start),
                                            3),
-                         "radii_max": round(float(vis_radii.max()), 1),
-                         "n_r20": int((vis_radii > 20.0).sum())}
+                         "radii_max": round(float(aux["radii_max"]), 1),
+                         "n_r20": int(aux["n_r20"])}
                 if os.environ.get("S3G_PROBE"):
                     pr = probe_pool(state, opt, scene.cameras_extent)
                     entry["probe"] = {k: round(float(v), 8)
@@ -432,6 +524,7 @@ def main(argv=None, device: str = "cuda"):
 
     state = scene_reconstruction(state, "fine", start_iter + 1,
                                  opt.iterations)
+    graphs.release()
     save("fine", opt.iterations, state)
     if is_primary():
         ckpt.save_ply_pool(os.path.join(

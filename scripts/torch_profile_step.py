@@ -18,9 +18,12 @@ It takes 3 warm-up fine steps, then traces STEPS fine steps with
 ``torch.profiler`` and prints, as JSON lines: the step's wall time (host
 clock, synchronised), the device kernel time per step and its share of
 the step (the busy share), the launches per step, and the TOP kernels by
-device time per step.  Run from the repository root:
+device time per step.  With ``--graph`` the steps are replays of the
+step captured as a CUDA graph (``train_steps_scan[_multicam]``, blocks
+of STEPS, the capture in the warm-up) instead of eager steps.  Run from
+the repository root:
 
-    python3 scripts/torch_profile_step.py [--workload rig]
+    python3 scripts/torch_profile_step.py [--workload rig] [--graph]
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import chip_smoke as cs
+    from s3gaussian_tpu_torch.bench import card_line
     from s3gaussian_tpu_torch.config import (ModelHiddenParams,
                                              OptimizationParams,
                                              PipelineParams, RasterConfig)
@@ -53,7 +57,10 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--workload", default="single",
                         choices=("single", "rig", "waymo_rig"))
-    workload = parser.parse_args().workload
+    parser.add_argument("--graph", action="store_true",
+                        help="replays of the captured step")
+    cli = parser.parse_args()
+    workload = cli.workload
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -83,21 +90,25 @@ def main() -> int:
                            gt_depth) for yaw in yaws]
             for i in range(3 + STEPS)]
 
-    def step(s, rig):
-        if workload == "single":
-            return tr.train_step(s, rig[0], "fine", 3, hp, opt, pipe, cfg,
-                                 cs.SPATIAL_LR_SCALE, bg)[0]
-        return tr.train_step_multicam(s, rig, "fine", 3, hp, opt, pipe, cfg,
-                                      cs.SPATIAL_LR_SCALE, bg)[0]
+    args = ("fine", 3, hp, opt, pipe, cfg, cs.SPATIAL_LR_SCALE, bg)
 
-    for cam in cams[:3]:
-        state = step(state, cam)
+    def steps(s, rigs):
+        if cli.graph and workload == "single":
+            return tr.train_steps_scan(s, [r[0] for r in rigs], *args)[0]
+        if cli.graph:
+            return tr.train_steps_scan_multicam(s, rigs, len(yaws),
+                                                *args)[0]
+        for rig in rigs:
+            s = (tr.train_step(s, rig[0], *args) if workload == "single"
+                 else tr.train_step_multicam(s, rig, *args))[0]
+        return s
+
+    state = steps(state, cams[:3])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for cam in cams[3:]:
-            state = step(state, cam)
+        state = steps(state, cams[3:])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     kernels = [e for e in prof.events()
@@ -108,7 +119,8 @@ def main() -> int:
         d[0] += e.device_time_total / 1e3
         d[1] += 1
     device_ms = sum(v[0] for v in by_name.values()) / STEPS
-    print(json.dumps({"card": cs.card_line(), "workload": workload,
+    print(json.dumps({"card": card_line(), "workload": workload,
+                      "graph": cli.graph,
                       "cameras_per_step": len(yaws), "steps": STEPS,
                       "step_wall_ms": wall_ms,
                       "device_kernel_ms_per_step": device_ms,

@@ -65,8 +65,9 @@ H, W = 48, 64
 BENCH_PY_KEYS = {"backend", "session_s", "compile_s", "it_per_s", "n_pairs",
                  "overflow_pairs", "n_visible_overflow", "loss"}
 DROPPED_KEYS = {"session_s", "compile_s", "roofline_frac"}
-ADDED_KEYS = {"build_s", "warmup_s", "step_ms_median", "step_ms_min",
-              "step_ms_max", "peak_gib", "launches", "launches_per_step"}
+ADDED_KEYS = {"build_s", "steps_per_dispatch", "warmup_s", "capture_ms",
+              "step_ms_median", "step_ms_min", "step_ms_max", "peak_gib",
+              "launches", "launches_per_step"}
 SMALL = [bench.Spec("detail", 2000, 2048, 1 << 22),
          bench.Spec("detail_multicam3", 2000, 2048, 1 << 22, multicam=3,
                     render_fps=False),
@@ -188,7 +189,7 @@ def run_main(mp, specs, skip=()):
     out, err = io.StringIO(), io.StringIO()
     mp.setattr(bench, "ModelHiddenParams", lambda: T_HP)
     mp.setattr(bench, "default_specs", lambda: specs)
-    mp.setattr(bench, "WARMUP_STEPS", 1)
+    mp.setenv("BENCH_SCAN", "2")
     mp.setenv("BENCH_STEPS", "2")
     for k in ("MULTICAM", "FULL", "RIG"):
         if k in skip:
@@ -238,7 +239,8 @@ def test_detail_lines_keep_bench_py_keys(printed, spec):
         want.add("it_per_s_1p5m")
     assert set(got) == (want - DROPPED_KEYS) | ADDED_KEYS
     assert got["backend"] == "cpu" and got["build_s"] is None
-    assert got["peak_gib"] is None
+    assert got["peak_gib"] is None and got["capture_ms"] is None
+    assert got["steps_per_dispatch"] == 2
     assert got["overflow_pairs"] == 0 and np.isfinite(got["loss"])
     assert got["step_ms_min"] <= got["step_ms_median"] <= got["step_ms_max"]
     # the plain compositors on the CPU: no kernel launch

@@ -169,11 +169,10 @@ def test_cfg_args_fields_match(runs):
         want = ast.literal_eval(f.read())
     with open(os.path.join(tout, "cfg_args")) as f:
         got = ast.literal_eval(f.read())
-    # the TPU-only fields and the flag of the scanned dispatch
+    # the TPU-only fields
     assert set(want) - set(got) == {
-        "steps_per_dispatch", "remat_deform", "max_pairs_per_tile",
-        "use_pallas", "sort_bf16", "sort_hier", "multicam_serialize",
-        "multicam_scan"}
+        "remat_deform", "max_pairs_per_tile", "use_pallas", "sort_bf16",
+        "sort_hier", "multicam_serialize", "multicam_scan"}
     assert set(got) <= set(want)
     for k, v in got.items():
         if k != "model_path":

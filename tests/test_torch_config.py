@@ -1,7 +1,8 @@
 """The port's own config dataclasses keep the JAX package's field names
 and defaults (only the TPU-only fields are left out); its native KNN
 loader; its entry points put tensors on the card unless asked for the
-CPU."""
+CPU, and the block functions run where the state lies; the CLI's
+``--steps_per_dispatch`` has ``train.py``'s default."""
 
 import argparse
 import dataclasses
@@ -195,3 +196,43 @@ def _entry_points():
 def test_entry_points_default_to_the_card(name):
     fn = _entry_points()[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def _block_functions():
+    from s3gaussian_tpu_torch.parallel import data_parallel
+    from s3gaussian_tpu_torch.train import graphs, trainer
+    return {"train_steps_scan": trainer.train_steps_scan,
+            "train_steps_scan_multicam": trainer.train_steps_scan_multicam,
+            "parallel_train_steps_scan": data_parallel.parallel_train_steps_scan,
+            "parallel_train_steps_scan_multicam":
+                data_parallel.parallel_train_steps_scan_multicam,
+            "graphs.replay_steps": graphs.replay_steps}
+
+
+@pytest.mark.parametrize("name", sorted(_block_functions()))
+def test_block_functions_run_where_the_state_lies(name):
+    """The block functions take no device: they run on the state's (the
+    entry points above put it on the card), replaying the captured step
+    on a CUDA state and looping the eager step on a CPU one."""
+    params = inspect.signature(_block_functions()[name]).parameters
+    assert "device" not in params and "state" in params
+
+
+def test_steps_per_dispatch_defaults_as_train_py():
+    """The port's CLI declares ``--steps_per_dispatch`` with ``train.py``'s
+    default, read off both sources."""
+    import ast
+
+    def flag_default(path):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call) and node.args
+                    and isinstance(node.args[0], ast.Constant)
+                    and node.args[0].value == "--steps_per_dispatch"):
+                return [ast.literal_eval(k.value) for k in node.keywords
+                        if k.arg == "default"]
+        return None
+
+    want = flag_default(ROOT / "train.py")
+    assert want == [10]
+    assert flag_default(ROOT / "s3gaussian_tpu_torch" / "train_cli.py") \
+        == want

@@ -783,3 +783,248 @@ def test_cuda_nccl_world_of_one_step_matches_train_step(cuda_device,
         np.testing.assert_allclose(got[k].numpy(), w,
                                    atol=1e-3 * np.abs(w).max(), rtol=1e-2,
                                    err_msg=k)
+
+
+# --------------------------------------------------------------------------
+# the train step as a captured CUDA graph (train/graphs.py)
+# --------------------------------------------------------------------------
+
+def _graph_setup(dev, seed=10):
+    """A small mid-training state on ``dev`` and its settings: (state,
+    step arguments after the stage)."""
+    from s3gaussian_tpu_torch.config import (ModelHiddenParams,
+                                             OptimizationParams,
+                                             PipelineParams)
+    from s3gaussian_tpu_torch.models.deformation import DeformationField
+    from s3gaussian_tpu_torch.models.pool import create_from_pcd
+    from s3gaussian_tpu_torch.train.trainer import init_state
+
+    rng = np.random.default_rng(seed)
+    n = 1500
+    pts = np.stack([rng.uniform(-3, 3, n), rng.uniform(-1, 1, n),
+                    rng.uniform(2, 8, n)], 1).astype(np.float32)
+    cols = rng.random((n, 3)).astype(np.float32)
+    hp = ModelHiddenParams(net_width=16, multires=[1, 2],
+                           kplanes_config={"grid_dimensions": 2,
+                                           "input_coordinate_dim": 4,
+                                           "output_coordinate_dim": 8,
+                                           "resolution": [8, 8, 8, 5]})
+    cfg = RasterConfig(max_visible=2048, pair_budget=1 << 18, rect_w=8,
+                       rect_h=8, tile_x=8, tile_y=8)
+    state = init_state(create_from_pcd(pts, cols, 2048, device=dev),
+                       DeformationField(hp, torch.Generator().manual_seed(0),
+                                        dev),
+                       torch.tensor([[9.0] * 3, [-9.0] * 3], device=dev))
+    mrng = np.random.default_rng(3)
+    for tree, scale in ((state.adam.mu, 1e-3), (state.adam.nu, 1e-6)):
+        for d in tree.values():
+            for v in d.values():
+                x = mrng.normal(size=tuple(v.shape)) * scale
+                v.copy_(torch.from_numpy(np.abs(x) if scale < 1e-4 else x))
+    state.adam.count.fill_(5)
+    return state, (3, hp, OptimizationParams(), PipelineParams(), cfg, 5.0,
+                   torch.zeros(3, device=dev))
+
+
+def _graph_cameras(dev, n, seed=20):
+    """Cameras that differ in yaw, time, field of view and target."""
+    from s3gaussian_tpu_torch.data.cameras import make_camera
+
+    rng = np.random.default_rng(seed)
+    cams = []
+    for i in range(n):
+        a = np.deg2rad(8.0 * (i % 3 - 1))
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        cams.append(make_camera(
+            R, np.zeros(3), 1.0 + 0.05 * (i % 3), 0.8 - 0.04 * (i % 2), W, H,
+            time=0.3 + 0.1 * i,
+            image=rng.random((H, W, 3)).astype(np.float32),
+            depth_map=rng.uniform(1, 8, (H, W)).astype(np.float32),
+            device=dev))
+    return cams
+
+
+def _copy(state):
+    from s3gaussian_tpu_torch.train.graphs import clone_state
+    return clone_state(state)
+
+
+def _assert_updates_close(got, want, start):
+    """chip_smoke.py's train-step tolerances on each parameter's update."""
+    from s3gaussian_tpu_torch.train.trainer import param_tree
+    g, w = (param_tree(s.pool, s.deform) for s in (got, want))
+    for grp, d in start.items():
+        for k, s0 in d.items():
+            dw = (w[grp][k].detach().cpu() - s0).double()
+            dg = (g[grp][k].detach().cpu() - s0).double()
+            np.testing.assert_allclose(dg.numpy(), dw.numpy(),
+                                       atol=1e-3 * float(dw.abs().max()),
+                                       rtol=1e-2, err_msg=f"{grp}.{k}")
+    assert int(got.step) == int(want.step)
+    assert int(got.adam.count) == int(want.adam.count)
+
+
+def _start(state):
+    from s3gaussian_tpu_torch.train.trainer import param_tree
+    return {g: {k: v.detach().cpu().clone() for k, v in d.items()}
+            for g, d in param_tree(state.pool, state.deform).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rig", [False, True])
+def test_cuda_block_of_replays_matches_eager_steps(cuda_device, rig):
+    """A block of 5 replays (``train_steps_scan``, or 5 rigs of 3 through
+    ``train_steps_scan_multicam``) against as many eager steps from one
+    state: each step's loss rtol 1e-4, each parameter's update
+    chip_smoke.py's tolerances, the last step's visibility equal but for
+    0.1% of the rows; one forward and one backward launch a camera
+    captured, counted once a replay."""
+    from s3gaussian_tpu_torch.train import graphs
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    state, args = _graph_setup(cuda_device)
+    cams = _graph_cameras(cuda_device, 15 if rig else 5)
+    views = [cams[3 * i:3 * i + 3] for i in range(5)] if rig else cams
+    b = 3 if rig else 1
+    start = _start(state)
+    eager = _copy(state)
+    losses = []
+    for v in views:
+        eager, aux = (tr.train_step_multicam if rig else tr.train_step)(
+            eager, v, "fine", *args)
+        losses.append(aux["metrics"]["loss"].item())
+    eager_vis = aux["visible"].cpu()
+    graphs.release()
+    launches = (tk.launches, tk.bwd_launches)
+    try:
+        if rig:
+            got, gaux = tr.train_steps_scan_multicam(state, views, 3, "fine",
+                                                     *args)
+        else:
+            got, gaux = tr.train_steps_scan(state, views, "fine", *args)
+        torch.cuda.synchronize()
+        g = graphs.current()
+        assert got is state and g.state is state and g.replays == 5
+        assert g.launches == (b, b)
+        # 5 replays and the capture's warm-up step
+        assert (tk.launches - launches[0],
+                tk.bwd_launches - launches[1]) == (6 * b, 6 * b)
+        # the last replay's visibility, in the graph's own outputs
+        assert int((g.out["visible"].cpu() != eager_vis).sum()) <= max(
+            1, eager_vis.numel() // 1000)
+    finally:
+        graphs.release()
+    np.testing.assert_allclose(gaux["metrics"]["loss"].cpu().numpy(), losses,
+                               rtol=1e-4)
+    assert gaux["n_pairs"].shape == (5,) and int(gaux["n_pairs"].min()) > 0
+    _assert_updates_close(got, eager, start)
+
+
+@pytest.mark.cuda
+def test_cuda_load_after_densify(cuda_device):
+    """A densify between two blocks: the second block loads the new pool
+    rows into the held graph's static state (no recapture, the static
+    tensors stay where they were) and equals eager steps from the
+    densified state."""
+    from s3gaussian_tpu_torch.train import graphs
+    from s3gaussian_tpu_torch.train import trainer as tr
+    from s3gaussian_tpu_torch.train.checkpoints import state_tensors
+
+    state, args = _graph_setup(cuda_device, seed=11)
+    cams = _graph_cameras(cuda_device, 6, seed=21)
+    graphs.release()
+    try:
+        state, _ = tr.train_steps_scan(state, cams[:3], "fine", *args)
+        g = graphs.current()
+        where = {k: v.data_ptr() for k, v in state_tensors(state).items()}
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        dens, info = tr.densify_step(state, gen, 1e-5, 0.005, 5.0, None,
+                                     args[2])
+        assert int(info["n_cloned"]) + int(info["n_split"]) > 0
+        start = _start(dens)
+        eager = _copy(dens)
+        for c in cams[3:]:
+            eager, _ = tr.train_step(eager, c, "fine", *args)
+        got, _ = tr.train_steps_scan(dens, cams[3:], "fine", *args)
+        torch.cuda.synchronize()
+        assert graphs.current() is g and got is g.state
+        assert {k: v.data_ptr() for k, v in
+                state_tensors(got).items()} == where
+        assert torch.equal(got.pool.alive, eager.pool.alive)
+    finally:
+        graphs.release()
+    _assert_updates_close(got, eager, start)
+
+
+@pytest.mark.cuda
+def test_cuda_replay_counts_its_captured_launches(cuda_device):
+    """A capture counts no launch, a replay adds what the graph captured,
+    and a block of one replays the held graph."""
+    from s3gaussian_tpu_torch.train import graphs
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    state, args = _graph_setup(cuda_device, seed=12)
+    rig = _graph_cameras(cuda_device, 3, seed=22)
+    graphs.release()
+    try:
+        captured = list(tk.captured)
+        state, _ = tr.train_steps_scan_multicam(state, [rig], 3, "fine",
+                                                *args)
+        g = graphs.current()
+        assert g.launches == (3, 3)
+        assert [a - b for a, b in zip(tk.captured, captured)] == [3, 3]
+        for _ in range(2):
+            before = (tk.launches, tk.bwd_launches)
+            state, _ = tr.train_steps_scan_multicam(state, [rig], 3, "fine",
+                                                    *args)
+            assert graphs.current() is g
+            assert (tk.launches - before[0],
+                    tk.bwd_launches - before[1]) == (3, 3)
+        assert g.replays == 3
+    finally:
+        graphs.release()
+
+
+@pytest.mark.cuda
+def test_cuda_eager_step_never_waits_for_the_host(cuda_device):
+    """One eager step, single and rig, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync, so the
+    step can be captured."""
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    state, args = _graph_setup(cuda_device, seed=13)
+    cams = _graph_cameras(cuda_device, 4, seed=23)
+    state, _ = tr.train_step(state, cams[0], "fine", *args)   # lazy set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = tr.train_step(state, cams[1], "fine", *args)
+        state, _ = tr.train_step_multicam(state, cams[1:], "fine", *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_parallel_block_over_gloo_raises(cuda_device, tmp_path):
+    """A data-parallel block on the card captures its all-reduces, which
+    gloo cannot be captured into: over gloo it raises, naming NCCL and
+    ``--steps_per_dispatch 1``, before it captures anything."""
+    import torch.distributed as dist
+
+    from s3gaussian_tpu_torch.parallel import data_parallel as dp
+    from s3gaussian_tpu_torch.parallel.multihost import init_multihost
+    from s3gaussian_tpu_torch.train import graphs
+
+    state, args = _graph_setup(cuda_device, seed=14)
+    cams = _graph_cameras(cuda_device, 2, seed=24)
+    graphs.release()
+    assert init_multihost("file://" + str(tmp_path / "store"), 1, 0,
+                          backend="gloo", device="cuda") == (0, 1)
+    try:
+        with pytest.raises(RuntimeError, match="NCCL.*--steps_per_dispatch 1"):
+            dp.parallel_train_steps_scan(state, cams, "fine", *args)
+        assert graphs.current() is None
+    finally:
+        dist.destroy_process_group()
