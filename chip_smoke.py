@@ -8,8 +8,9 @@ Phases, a few lines of output each (any failure exits non-zero before the
 last line):
 
   1. the card (``nvidia-smi`` name and power limit), capability 9.0;
-  2. build both CUDA compositors from ``s3gaussian_tpu_torch/csrc`` (one
-     ``nvcc`` each, in parallel), with ptxas registers and spills;
+  2. build the three CUDA kernels from ``s3gaussian_tpu_torch/csrc`` (the
+     two compositors and the segment sum; one ``nvcc`` each, in
+     parallel), with ptxas registers and spills;
   3. each kernel vs its plain PyTorch version on the sorted pair stream of
      one full-width view and of a high-opacity variant (early exit), with
      the tolerances of ``tests/test_tile_kernels.py``, and both times
@@ -19,6 +20,10 @@ last line):
      for that work.  The backward's
      cotangent is the gradient of the train step's loss with respect to
      the compositor output;
+  3b. the segment-sum kernel (``csrc/segment_sum.cu``: the field's grid
+     gradients, in a fixed order) against its plain version on every call
+     of one headline fine step, bit for bit on repeat; the largest call
+     timed beside the plain version and ``index_add_``, with its bound;
   4. the render path: the headline scene of ``bench.py`` (200,000
      LiDAR-like Gaussians in a 204,800 pool, SH degree 3, default
      deformation field) rendered at 640x960 through ``render()`` for 3 rig
@@ -70,9 +75,20 @@ last line):
      one frame per camera of every frame key, the videos or PNGs written,
      no render beyond its budgets, 3 compositor launches per camera and 2
      per flow render; seconds per split, render rates, video writing
-     seconds, peak memory.  Then SSIM, masked SSIM and LPIPS of one sweep
-     frame on the card with TF32 switched on globally against the CPU in
-     float64 (LPIPS float32), atol 1e-5, and each metric's ms per view;
+     seconds, peak memory; the sweep's renders are replays of a rig graph
+     and a flow graph (one capture each a split).  Then (7b) the sweep's
+     graphs against direct calls on the final model's train split: one
+     eager render of each captured kind under
+     ``torch.cuda.set_sync_debug_mode("error")``, then ``render_pixels``
+     against ``render_multicam`` (with the decomposition) and ``render``
+     (the flow colours of the direct dx): frames within 5e-4 of the
+     clipped render beyond the uint8 step, flow frames included, depth
+     atol 5e-4 rtol 1e-4, every per-view metric within 1e-5; replays a
+     second, the captures' ms, and one rig render eager and replayed (ms,
+     device operations, host launch calls).  Then SSIM, masked SSIM and
+     LPIPS of one sweep frame on the card with TF32 switched on globally
+     against the CPU in float64 (LPIPS float32), atol 1e-5, and each
+     metric's ms per view;
   8. ``--eval_only`` on phase 7's model path: it restores the final fine
      checkpoint, its sweep holds phase 7's gates and reproduces its
      per-view metrics within 1e-6; on a fresh model path it refuses
@@ -118,8 +134,8 @@ last line):
      two-rank figures are labelled: two ranks sharing one card are not a
      scaling figure;
  13. the train step as a captured CUDA graph (``train/graphs.py``)
-     against the eager step, run after 5b from its pool and field with
-     mid-training moments (as 12a's), cameras that
+     against the eager step, run after 5b from its pool, field and Adam
+     moments, cameras that
      differ in yaw, time, field of view and target: (a) a fine block of
      10 through ``train_steps_scan``, (b) 3 rigs of 3 through
      ``train_steps_scan_multicam``, (c) a ``densify_step`` between two
@@ -133,15 +149,26 @@ last line):
      ``torch.cuda.set_sync_debug_mode("error")``.  Per block: the
      warm-up and capture ms, ms a step replayed and eager (CUDA events,
      median), device operations, host launch calls and device ms a step
-     as ``torch.profiler`` counts them, peak and reserved memory.
+     as ``torch.profiler`` counts them, peak and reserved memory.  (e) Two
+     eager steps from one state give the same bits (loss, parameters,
+     moments, statistics): the headline camera and 5b's rig with
+     two-class emission here, the Waymo rig with its cull in 6c; a step's
+     profile holds no ``indexing_backward_kernel`` or
+     ``indexFuncLargeIndex``, the backward's largest kernels are printed,
+     and one step runs under ``torch.use_deterministic_algorithms(True,
+     warn_only=True)`` as a diagnostic (what PyTorch flags is printed).
      ``python3 chip_smoke.py --phase 13`` runs the build and this phase
-     alone, on a fresh headline state, and prints no result line.
+     alone, on a fresh headline state with mid-training moments, and
+     prints no result line.
 
 Then the compositor launches of every phase that drives the port's
-paths (4, 5, 5b, 6c, 7, 8, 9, 10, 11, 12a-c, 13, 12b and 12c summed over
-both ranks; not the comparisons of 3, 6 and 6b), one JSON line with
-both kernels (their launches summed over those phases), the script's
-wall time, the card line, and last ``{"ok": true, "device": {...}}``.
+paths (4, 5, 5b, 6c, 7, 7b's replayed sweep, 8, 9, 10, 11, 12a-c, 13,
+12b and 12c summed over both ranks; not the comparisons of 3, 6 and 6b),
+the segment-sum launches of this process's phases from 4 on but 6 and 6b
+(the bench's and the rank processes' run in their own processes and are
+not counted), one JSON line with the three kernels (their launches over
+those phases), the script's wall time, the card line, and last
+``{"ok": true, "device": {...}}``.
 The port imports no jax; neither does this script.
 """
 
@@ -238,6 +265,12 @@ SWEEP_FRAMES = ("rgbs", "gt_rgbs", "depths", "dynamic_rgbs", "static_rgbs",
                 "forward_flows", "backward_flows")
 SWEEP_OVERFLOW = ("overflow_rect", "overflow_visible", "overflow_pairs")
 METRIC_ATOL = 1e-5
+# phase 7b: a replayed sweep frame against the direct render, beyond the
+# uint8 step (the render tolerance)
+SWEEP_FRAME_ATOL = 5e-4
+# phase 3b: the segment-sum kernel against its plain version, which adds
+# in the same order (atol a share of the largest sum)
+SEGSUM_ATOL = 1e-6
 LPIPS_FIXTURE = os.path.join(REPO, "tests", "fixtures",
                              "lpips_alex_fixture.npz")
 # the CLI's device memory after a step may not grow across the fine stage
@@ -271,6 +304,8 @@ DP_LABEL = "two ranks sharing one card, gloo: not a scaling figure"
 GRAPH_BLOCK, GRAPH_RIGS, GRAPH_SPLIT, GRAPH_DP = 10, 3, 3, 5
 GRAPH_FOVS = (0.9, 1.0, 1.1)
 GRAPH_PROFILE = 2
+# 13e: the two-class budget of the repeated rig step
+REPEAT_BIG_BUDGET = 65_536
 LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
                 "cudaMemsetAsync"}
@@ -508,9 +543,10 @@ def ptxas_summary(log):
     bytes" for each kernel."""
     lines, name, spill = [], None, ""
     for ln in log.splitlines():
-        m = re.search(r"(composite_[a-z]+_kernel)", ln)
+        m = re.search(r"(composite_[a-z]+_kernel|segment_sum_kernelILi\d)",
+                      ln)
         if "entry function" in ln and m:
-            name = m[1]
+            name = m[1].replace("ILi", "<") + (">" if "ILi" in m[1] else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = f"{m[1]}+{m[2]} spill bytes"
@@ -584,6 +620,81 @@ def bound(n_bytes, n_instr):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_instr / F32_INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def segsum_phase(torch, su, card):
+    """Phase 3b: the segment-sum kernel (``csrc/segment_sum.cu``, through
+    ``ops/segsum.py::sum_ranges``) against its plain version
+    (``ranges_torch``, on the card) on every call one eager headline fine
+    step makes (the field's grid gradients: the first level of each
+    plane's sums reads its rows through the sort's permutation): max abs
+    error within SEGSUM_ATOL·max|plain|, the same bits on repeat.  Times
+    the kernel, the plain version and the library call that computes the
+    same sums (``index_add_`` of the rows by range, float32 atomics) on
+    the largest call; its bound counts each value, permutation entry and
+    offset read once and each sum written once (bytes), one float32 add a
+    value (operations).  Returns the line's fields."""
+    from s3gaussian_tpu_torch.ops import gridsample, segsum
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    calls = []
+    orig = gridsample.sum_ranges
+
+    def record(vals, perm, offs):
+        calls.append(tuple(None if x is None else x.clone()
+                           for x in (vals, perm, offs)))
+        return orig(vals, perm, offs)
+
+    state = tr.init_state(su.pool, su.deform, su.aabb)
+    cam = rig_camera(torch, su.bg.device, 0.0, 0.4, H, W, su.gt, su.gt_depth)
+    gridsample.sum_ranges = record
+    try:
+        tr.train_step(state, cam, "fine", 3, su.hp, su.opt, su.pipe, su.cfg,
+                      SPATIAL_LR_SCALE, su.bg)
+        torch.cuda.synchronize()
+    finally:
+        gridsample.sum_ranges = orig
+    del state
+    check(len(calls) > 0, "3b: the step made no segment sum")
+    max_err = max_rel = 0.0
+    for vals, perm, offs in calls:
+        got = segsum.sum_ranges(vals, perm, offs)
+        want = segsum.ranges_torch(vals, perm, offs)
+        again = segsum.sum_ranges(vals, perm, offs)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), "3b: segment_sum not deterministic")
+        scale = max(float(want.abs().max()), 1e-30)
+        err = float((got - want).abs().max())
+        check(err <= SEGSUM_ATOL * scale, f"3b: segment_sum differs from "
+              f"its plain version by {err:.3e} (scale {scale:.3e}) on "
+              f"{tuple(vals.shape)} rows, {offs.shape[0] - 1} ranges")
+        max_err, max_rel = max(max_err, err), max(max_rel, err / scale)
+    # the largest call: the first level of the plane with the most rows
+    vals, perm, offs = max(calls, key=lambda c: (c[1] is not None,
+                                                 c[0].numel()))
+    k = perm.shape[0]
+    n, d = offs.shape[0] - 1, vals.shape[1]
+    ids = torch.repeat_interleave(torch.arange(n, device=vals.device),
+                                  offs[1:] - offs[:-1], output_size=k)
+    rows = vals[perm]
+    ms = cuda_ms(torch, lambda: segsum.sum_ranges(vals, perm, offs), reps=20)
+    plain_ms = cuda_ms(torch, lambda: segsum.ranges_torch(vals, perm, offs),
+                       reps=20)
+    library_ms = cuda_ms(torch, lambda: torch.zeros(
+        (n, d), device=vals.device).index_add_(0, ids, rows), reps=20)
+    n_bytes = k * d * 4 + k * 8 + (n + 1) * 8 + n * d * 4
+    bnd = bound(n_bytes, k * d)
+    print(f"segment_sum vs plain: {len(calls)} calls of one headline fine "
+          f"step, max abs err {max_err:.3e}, {max_rel:.3e} of max|plain| "
+          f"(gate "
+          f"{SEGSUM_ATOL}), the same bits on repeat; the largest call "
+          f"({k} rows of {d} through the permutation into {n} ranges): "
+          f"kernel {ms:.4f} ms, plain (torch.segment_reduce after the "
+          f"gather) {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; "
+          f"bound {n_bytes} bytes -> {bnd[0]:.4f} ms, set by {bnd[1]}; "
+          f"kernel at {bnd[0] / ms:.3f} of it ({card})", flush=True)
+    return {"max_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound": bnd}
 
 
 def state_to(torch, state, dev):
@@ -660,10 +771,10 @@ def kernel_streams(torch, su):
 def new_record():
     """What the hooks of ``cli_hooks`` record over one CLI run."""
     return {"reader_s": None, "scene": None, "densify_ms": [], "save_ms": [],
-            "alloc": [], "evals": [], "splits": [], "rig_s": [], "flow_s": [],
-            "video_s": [], "ovf": dict.fromkeys(SWEEP_OVERFLOW, 0),
+            "alloc": [], "evals": [], "splits": [], "video_s": [],
             "pair": None, "train_launches": None, "train_peak": None,
-            "frames": None, "dispatches": [], "captures": []}
+            "frames": None, "dispatches": [], "captures": [],
+            "eval_args": None}
 
 
 @contextlib.contextmanager
@@ -683,7 +794,6 @@ def cli_hooks(torch, rec):
                (train_cli, "train_steps_scan_multicam"),
                (graphs, "StepGraph"), (train_cli, "do_evaluation"),
                (ckpt, "save_checkpoint"), (video, "render_pixels"),
-               (video, "render_multicam"), (video, "render"),
                (video, "save_videos")}
     orig = {name: getattr(mod, name) for mod, name in targets}
 
@@ -738,6 +848,8 @@ def cli_hooks(torch, rec):
         t = time.perf_counter()
         res = orig["do_evaluation"](*a, **k)
         torch.cuda.synchronize()
+        # what the sweep rendered, for the replayed sweep's check
+        rec["eval_args"] = (a, k)
         rec["evals"].append({
             "step": k["step"], "stage": a[9], "results": res,
             "s": time.perf_counter() - t,
@@ -747,10 +859,11 @@ def cli_hooks(torch, rec):
 
     def render_pixels(cams, *a, **k):
         t = time.perf_counter()
-        frames = orig["render_pixels"](cams, *a, **k)
+        stats = {}
+        frames = orig["render_pixels"](cams, *a, stats=stats, **k)
         torch.cuda.synchronize()
         rec["splits"].append({
-            "n": len(cams), "s": time.perf_counter() - t,
+            "n": len(cams), "s": time.perf_counter() - t, "stats": stats,
             "frames": {key: len(v) for key, v in frames.items()
                        if isinstance(v, list)},
             "metrics": frames.get("metrics"),
@@ -760,26 +873,6 @@ def cli_hooks(torch, rec):
             # metrics tool
             rec["frames"] = {k: frames[k] for k in ("rgbs", "gt_rgbs")}
         return frames
-
-    def timed_render(fn, times):
-        def wrapped(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            pkg = fn(*a, **k)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-            for key in SWEEP_OVERFLOW:
-                rec["ovf"][key] = max(rec["ovf"][key],
-                                      int(pkg["raster_aux"][key]))
-            if fn is orig["render_multicam"] and rec["pair"] is None:
-                # the first sweep frame whose dynamic mask has pixels, in
-                # float32, and its camera, for the metric check on the card
-                for b, cam in enumerate(a[0]):
-                    if bool(cam.dynamic_mask.any()):
-                        rec["pair"] = (pkg["render"][b].clone(), cam)
-                        break
-            return pkg
-        return wrapped
 
     def save_videos(*a, **k):
         t = time.perf_counter()
@@ -795,9 +888,6 @@ def cli_hooks(torch, rec):
              "StepGraph": CountedGraph,
              "save_checkpoint": save_checkpoint,
              "do_evaluation": do_evaluation, "render_pixels": render_pixels,
-             "render_multicam": timed_render(orig["render_multicam"],
-                                             rec["rig_s"]),
-             "render": timed_render(orig["render"], rec["flow_s"]),
              "save_videos": save_videos}
     env = {"S3G_LOG_EVERY": str(CLI_LOG_EVERY),
            "S3G_LPIPS_WEIGHTS": LPIPS_FIXTURE}
@@ -850,17 +940,29 @@ def check_sweep(torch, rec, out, step, card, tag):
             check(f"{key}.mp4" in written or pngs <= written,
                   f"{tag} {split}: no video or PNGs of {key}")
         per_view[split] = sp["per_view"]
-    check(rec["ovf"]["overflow_visible"] == rec["ovf"]["overflow_pairs"] == 0,
-          f"{tag}: a sweep render overflowed its budget: {rec['ovf']}")
-    n_rig, n_flow = len(rec["rig_s"]), len(rec["flow_s"])
-    want_launches = len(SWEEP_SPLITS) * n_cams * 5
-    check(n_rig == len(SWEEP_SPLITS) * CLIP_FRAMES
-          and n_flow == len(SWEEP_SPLITS) * n_cams * 2,
-          f"{tag}: {n_rig} rig and {n_flow} flow renders")
-    check(ev["launches"] == (want_launches, 0),
-          f"{tag}: {ev['launches']} forward/backward launches in the sweep, "
-          f"not ({want_launches}, 0)")
     splits = rec["splits"][-len(SWEEP_SPLITS):]
+    n_rigs = n_cams // CLIP_CAMS
+    want_launches = [0, 0]
+    for split, sp in zip(SWEEP_SPLITS, splits):
+        st = sp["stats"]
+        ovf = st["overflow"]
+        check(ovf["overflow_visible"] == ovf["overflow_pairs"] == 0,
+              f"{tag} {split}: a sweep render overflowed its budget: {ovf}")
+        # one capture a kind of render, the rig's and the flow renders'
+        # (3 cameras x full, dynamic and static; one camera)
+        check([(w, launches) for w, _, _, launches in st["captures"]]
+              == [("rig", (3 * CLIP_CAMS, 0)), ("flow", (1, 0))],
+              f"{tag} {split}: captures {st['captures']}")
+        check(st["replays"] == n_rigs + 2 * n_cams,
+              f"{tag} {split}: {st['replays']} replays for {n_rigs} rigs "
+              f"and {2 * n_cams} flow renders")
+        # a replay counts what its graph captured; a capture's warm-up
+        # render launches it once more
+        want_launches[0] += n_cams * 5 + sum(
+            c[3][0] for c in st["captures"])
+    check(ev["launches"] == tuple(want_launches),
+          f"{tag}: {ev['launches']} forward/backward launches in the sweep, "
+          f"not {tuple(want_launches)}")
     print(f"{tag}: eval sweep at fine {step}: " + "; ".join(
         f"{split} {sp['n']} cameras {sp['s']:.3f} s, psnr "
         f"{m['psnr']:.3f} ssim {m['ssim']:.4f} lpips {m['lpips']:.4f} "
@@ -868,18 +970,191 @@ def check_sweep(torch, rec, out, step, card, tag):
         for split, sp, m in zip(SWEEP_SPLITS, splits,
                                 (ev["results"][s] for s in SWEEP_SPLITS)))
         + f"; whole sweep {ev['s']:.3f} s ({card})", flush=True)
-    print(f"{tag}: sweep renders (host clock, synchronised): {n_rig} rig "
-          f"renders (3 cameras x full, dynamic, static) at "
-          f"{n_rig / sum(rec['rig_s']):.2f}/s, median "
-          f"{np.median(rec['rig_s']) * 1e3:.2f} ms; {n_flow} flow renders at "
-          f"{n_flow / sum(rec['flow_s']):.2f}/s, median "
-          f"{np.median(rec['flow_s']) * 1e3:.2f} ms; video/PNG writing "
-          + " + ".join(f"{x:.3f}" for x in rec["video_s"])
-          + f" s; peak device memory over the sweep {ev['peak'] / 2**30:.2f} "
-          f"GiB; rect-clamped {rec['ovf']['overflow_rect']} (most in a "
-          f"render); {ev['launches'][0]} forward / {ev['launches'][1]} "
-          f"backward compositor launches ({card})", flush=True)
+    print(f"{tag}: sweep per split (host clock): " + "; ".join(
+        f"{split} {sp['s']:.3f} s = rig renders with their metrics "
+        f"{sp['stats']['render_s']:.3f} s ({n_rigs} replays) + flow renders "
+        f"{sp['stats']['flow_s']:.3f} s ({2 * n_cams} replays) + PNG/video "
+        f"writing {vs:.3f} s, {sp['stats']['replays'] / (sp['stats']['render_s'] + sp['stats']['flow_s']):.2f} "
+        f"replays/s; captures (warm-up ms, capture ms) " + ", ".join(
+            f"{w} ({a:.1f}, {c:.1f})" for w, a, c, _ in sp["stats"]["captures"])
+        for split, sp, vs in zip(SWEEP_SPLITS, splits,
+                                 rec["video_s"][-len(SWEEP_SPLITS):]))
+        + f"; peak device memory over the sweep {ev['peak'] / 2**30:.2f} GiB; "
+        f"rect-clamped at most " + str(max(
+            sp["stats"]["overflow"]["overflow_rect"] for sp in splits))
+        + f" a render; {ev['launches'][0]} forward / {ev['launches'][1]} "
+        f"backward compositor launches ({card})", flush=True)
     return per_view, ev["launches"]
+
+
+def frame_err(torch, frame, img):
+    """Largest distance of a sweep frame [H,W,3] (steps of 1/255) from
+    the clipped float32 render [3,H,W] it quantises, beyond the half step
+    of the quantisation."""
+    want = torch.clamp(img, 0, 1).permute(1, 2, 0).double().cpu().numpy()
+    return max(float(np.abs(frame - want).max()) - 0.5 / 255, 0.0)
+
+
+def sweep_graph_phase(torch, rec, card):
+    """Phase 7b: the sweep's renders as CUDA graphs against direct calls,
+    on phase 7's final model and its train split (10 rigs of 3).  First
+    one eager render of each kind the sweep captures (a rig with the
+    decomposition and the metrics, a camera with flow colours) under
+    ``torch.cuda.set_sync_debug_mode("error")``; then ``render_pixels``
+    (replays) against ``render_multicam`` with the decomposition per rig
+    and ``render`` with the flow colours of the direct renders' dx per
+    camera: frames within SWEEP_FRAME_ATOL of the clipped render beyond
+    the uint8 step (flow frames included), depths atol 5e-4 rtol 1e-4,
+    every per-view metric within METRIC_ATOL of ``view_metrics`` of the
+    direct render.  Prints the replays a second, the captures' ms, and
+    for one rig render eager and replayed: ms (CUDA events), device
+    operations, host launch calls and device ms.  Returns the replayed
+    sweep's compositor launches."""
+    from s3gaussian_tpu_torch.eval import video
+    from s3gaussian_tpu_torch.eval.visualization import scene_flow_to_rgb
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.render.renderer import render, render_multicam
+    from s3gaussian_tpu_torch.train import graphs
+
+    a, _ = rec["eval_args"]
+    cams, pool, deform, pipe, bg, aabb, sh, stage, cfg = (
+        a[0], a[3], a[4], a[5], a[6], a[7], a[8], a[9], a[10])
+    env_before = os.environ.get("S3G_LPIPS_WEIGHTS")
+    os.environ["S3G_LPIPS_WEIGHTS"] = LPIPS_FIXTURE
+    try:
+        groups = video.rig_groups(cams, CLIP_CAMS)
+        check(groups is not None and len(groups) == CLIP_FRAMES,
+              "7b: the train split is not laid out as rigs")
+        # the kinds of render the sweep captures, eager, with no host sync
+        rig_fn = video._sweep_render(pool, deform, pipe, bg, aabb, sh,
+                                     stage, cfg, True, True, True, True,
+                                     True)
+        flow_fn = video._sweep_render(pool, deform, pipe, bg, aabb, sh,
+                                      stage, cfg, False, False, False,
+                                      False, False)
+        rig = [video._slim(c, True) for c in groups[0]]
+        one = [video._slim(cams[0], False)]
+        colors = torch.rand((pool.capacity, 3), device=bg.device)
+        with torch.no_grad():
+            for check_sync in (False, True):
+                torch.cuda.synchronize()
+                if check_sync:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    rig_fn(rig)
+                    flow_fn(one, override_color=colors)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+
+            # the replayed sweep
+            stats = {}
+            l0 = (tk.launches, tk.bwd_launches)
+            t0 = time.perf_counter()
+            frames = video.render_pixels(cams, pool, deform, pipe, bg, aabb,
+                                         sh, stage, cfg, stats=stats)
+            sweep_s = time.perf_counter() - t0
+            launches = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+            want = (len(cams) * 5 + sum(c[3][0] for c in stats["captures"]),
+                    0)
+            check(launches == want, f"7b: {launches} launches, not {want}")
+            check(graphs.current() is None, "7b: the sweep held its graph")
+
+            # direct calls
+            worst = {"frame": 0.0, "flow": 0.0, "depth": 0.0, "metric": 0.0}
+            pv = frames["metrics_per_view"]
+            dx = []
+            direct_masked = {"masked_psnr": [], "masked_ssim": []}
+            for r, g in enumerate(groups):
+                pkg = render_multicam(g, pool, deform, pipe, bg, aabb, sh,
+                                      stage=stage, return_decomposition=True,
+                                      cfg=cfg)
+                for b, cam in enumerate(g):
+                    i = r * CLIP_CAMS + b
+                    for key, img in (("rgbs", pkg["render"][b]),
+                                     ("dynamic_rgbs", pkg["render_d"][b]),
+                                     ("static_rgbs", pkg["render_s"][b])):
+                        worst["frame"] = max(worst["frame"], frame_err(
+                            torch, frames[key][i], img))
+                    d = pkg["depth"][b].cpu().numpy()
+                    err = np.abs(frames["depths"][i] - d)
+                    check(bool((err <= 5e-4 + 1e-4 * np.abs(d)).all()),
+                          f"7b: view {i} depth differs by {err.max():.3e}")
+                    worst["depth"] = max(worst["depth"], float(err.max()))
+                    vals = video.view_metrics(pkg["render"][b], cam)
+                    for k in ("psnr", "ssim", "lpips"):
+                        worst["metric"] = max(worst["metric"],
+                                              abs(pv[k][i] - vals[k]))
+                    for k in direct_masked:
+                        if k in vals:
+                            direct_masked[k].append(vals[k])
+                    if rec["pair"] is None and bool(cam.dynamic_mask.any()):
+                        # a frame whose mask has pixels, for the metric
+                        # check on the card
+                        rec["pair"] = (pkg["render"][b].clone(), cam)
+                    dx.append(pkg["dx"])
+            # the masked metrics: of the views whose mask has a pixel
+            for k, v in direct_masked.items():
+                check(len(v) == len(pv[k]), f"7b: {len(pv[k])} {k} values "
+                      f"for {len(v)} masked views")
+                for x, y in zip(pv[k], v):
+                    worst["metric"] = max(worst["metric"], abs(x - y))
+            n = len(cams)
+            for i, cam in enumerate(cams):
+                for key, j in (("forward_flows",
+                                min(i + video.FLOW_OFFSET * CLIP_CAMS,
+                                    n - 1)),
+                               ("backward_flows",
+                                max(i - video.FLOW_OFFSET * CLIP_CAMS, 0))):
+                    colors = scene_flow_to_rgb(dx[j] - dx[i],
+                                               flow_max_radius=2.0)
+                    img = render(cam, pool, deform, pipe, bg, aabb, sh,
+                                 stage=stage, override_color=colors,
+                                 cfg=cfg)["render"]
+                    worst["flow"] = max(worst["flow"], frame_err(
+                        torch, frames[key][i], img))
+            check(worst["frame"] <= SWEEP_FRAME_ATOL
+                  and worst["flow"] <= SWEEP_FRAME_ATOL,
+                  f"7b: replayed frames differ from direct renders: {worst}")
+            check(worst["metric"] <= METRIC_ATOL,
+                  f"7b: per-view metrics differ from direct ones: {worst}")
+
+            # one rig render eager and replayed
+            g = graphs.render_graph(("7b",), rig_fn, rig, {})
+            ms_e = cuda_ms(torch, lambda: rig_fn(rig), reps=3, warmup=1)
+            ms_g = cuda_ms(torch, lambda: g.run(rig), reps=10)
+            dev_e, calls_e, kms_e = profile_counts(torch, lambda: rig_fn(rig),
+                                                   1)
+            dev_g, calls_g, kms_g = profile_counts(torch, lambda: g.run(rig),
+                                                   1)
+            cap = (g.warmup_ms, g.capture_ms)
+            graphs.release()
+    finally:
+        if env_before is None:
+            del os.environ["S3G_LPIPS_WEIGHTS"]
+        else:
+            os.environ["S3G_LPIPS_WEIGHTS"] = env_before
+    print(f"7b: replayed sweep of the train split ({n} cameras, "
+          f"{len(groups)} rigs) in {sweep_s:.3f} s: rig renders with their "
+          f"metrics {stats['render_s']:.3f} s, {2 * n} flow renders "
+          f"{stats['flow_s']:.3f} s, {stats['replays']} replays = "
+          f"{stats['replays'] / (stats['render_s'] + stats['flow_s']):.2f} "
+          f"replays/s; captures (warm-up ms, capture ms) " + ", ".join(
+              f"{w} ({x:.1f}, {c:.1f})" for w, x, c, _ in stats["captures"])
+          + f"; against direct render_multicam / render calls: frames "
+          f"within {worst['frame']:.2e} and flow frames within "
+          f"{worst['flow']:.2e} beyond the uint8 step (gate "
+          f"{SWEEP_FRAME_ATOL}), depth {worst['depth']:.2e}, metrics "
+          f"{worst['metric']:.2e} (gate {METRIC_ATOL}); one rig render "
+          f"(3 cameras x full, dynamic, static, with metrics and LPIPS) "
+          f"eager / replayed: {ms_e:.3f} / {ms_g:.3f} ms (CUDA events), "
+          f"device operations {dev_e:.0f} / {dev_g:.0f}, host launch calls "
+          f"{calls_e:.0f} / {calls_g:.0f} ({calls_e / CLIP_CAMS:.0f} / "
+          f"{calls_g / CLIP_CAMS:.1f} a view), device ms {kms_e:.3f} / "
+          f"{kms_g:.3f}; its capture: warm-up {cap[0]:.1f} ms, capture "
+          f"{cap[1]:.1f} ms; {launches[0]} forward launches in the replayed "
+          f"sweep ({card})", flush=True)
+    return launches
 
 
 def eval_only_phase(torch, argv, out, per_view7, card):
@@ -1441,6 +1716,10 @@ def waymo_rig_phase(torch, dev, card):
         launches = (tk.launches - l0[0], tk.bwd_launches - l0[1])
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         state, split = rig_split(torch, state, rigs[n_timed:], su, cfg)
+        # 13e: the Waymo rig's step repeats bit for bit
+        repeat_step(torch, state, tr.train_step_multicam, rigs[0],
+                    ("fine", 3, su.hp, su.opt, su.pipe, cfg,
+                     SPATIAL_LR_SCALE, su.bg), "waymo rig, cull", card)
     except torch.cuda.OutOfMemoryError as e:
         raise SmokeFailure(f"waymo rig: the card ran out of memory "
                            f"(remat_deform is not ported): {e}") from e
@@ -1581,8 +1860,9 @@ def tools_phase(torch, out, rec7, card):
     check(abs(pv["mean"] - sweep_mean) <= 1e-4,
           f"eval_per_view mean psnr {pv['mean']} vs the final sweep's "
           f"train-split {sweep_mean}")
-    # one render a camera (the rigs, no decomposition), two flow renders
-    check((tk.launches, tk.bwd_launches) == (3 * n_views, 0),
+    # one render a camera (the rigs, no decomposition), two flow renders;
+    # the warm-up renders of the rig's and the flow renders' captures
+    check((tk.launches, tk.bwd_launches) == (3 * n_views + CLIP_CAMS + 1, 0),
           f"eval_per_view: {(tk.launches, tk.bwd_launches)} launches")
 
     t0 = time.time()
@@ -2153,10 +2433,97 @@ def compare_blocks(torch, start, s_graph, s_eager, aux_g, aux_e, what):
     return worst, acc_err
 
 
+# phase 13e: kernels whose names mark an accumulation with atomics in a
+# step's backward, none of which may remain; kernels printed a profile
+ATOMIC_KERNELS = ("indexing_backward_kernel", "indexFuncLargeIndex")
+TOP_KERNELS = 8
+
+
+def kernel_table(torch, fn):
+    """{kernel name: (launches, device ms)} of what ``fn`` runs on the
+    card, as ``torch.profiler`` records it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    table = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, ms = table.get(e.name, (0, 0.0))
+            table[e.name] = (n + 1, ms + e.device_time_total / 1e3)
+    return table
+
+
+def repeat_step(torch, state, step, view, args, what, card):
+    """Phase 13e: two eager steps of ``step`` on ``view`` from copies of
+    ``state`` must give the same bits: loss, parameters, Adam moments and
+    count, the densification statistics.  Then one step profiled (no
+    kernel of ATOMIC_KERNELS; the backward's largest kernels printed) and
+    one step under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``, a diagnostic: the operations PyTorch warns about
+    are printed."""
+    import warnings
+
+    from s3gaussian_tpu_torch.train import trainer as tr
+    from s3gaussian_tpu_torch.train.checkpoints import state_tensors
+
+    dev = state.pool.xyz.device
+    runs = []
+    for _ in range(2):
+        st, aux = step(state_to(torch, state, dev), view, *args)
+        torch.cuda.synchronize()
+        runs.append((state_tensors(st), aux["metrics"]["loss"].clone()))
+        del st, aux
+    (t1, l1), (t2, l2) = runs
+    differ = [(k, int((v != t2[k]).sum())) for k, v in t1.items()
+              if not torch.equal(v, t2[k])]
+    check(torch.equal(l1, l2) and not differ,
+          f"13e {what}: two steps from one state differ: loss "
+          f"{l1.item()!r} / {l2.item()!r}, tensors (name, entries) "
+          f"{differ[:6]}")
+    del runs, t1, t2
+    st = state_to(torch, state, dev)
+    whole = kernel_table(torch, lambda: step(st, view, *args))
+    found = [k for k in whole if any(a in k for a in ATOMIC_KERNELS)]
+    check(not found, f"13e {what}: a step launches {found}")
+    st = state_to(torch, state, dev)
+    stage, sh, hp, opt, pipe, cfg, _, bg = args
+    loss, _, tree, tap = tr.step_forward(st, view, stage, sh, hp, opt, pipe,
+                                         cfg, bg)
+    bwd = kernel_table(torch, lambda: tr.step_gradients(loss, tree, tap))
+    del loss, tree, tap
+    st = state_to(torch, state, dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step(st, view, *args)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" does not have a "
+                                           "deterministic")[0][:80]
+                      for w in caught if "determinis" in str(w.message)})
+    del st
+    top = sorted(bwd.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
+    print(f"13e {what}: two eager steps from one state bit-identical (loss "
+          f"{l1.item():.6f}, every parameter, moment and statistic); step "
+          f"profile: {sum(n for n, _ in whole.values())} kernels, "
+          f"{sum(ms for _, ms in whole.values()):.3f} device ms, none of "
+          f"{ATOMIC_KERNELS}; the backward's largest kernels (launches, "
+          f"device ms): " + "; ".join(
+              f"{k[:60]} ({n}, {ms:.3f})" for k, (n, ms) in top)
+          + f"; deterministic mode (diagnostic) flags: "
+          f"{flagged or 'nothing'} ({card})", flush=True)
+
+
 def graph_phase(torch, su, state, card):
     """Phase 13: the train step captured as one CUDA graph against the
-    eager step on the card, from ``state``'s pool and field with
-    ``mid_training``'s moments, cameras
+    eager step on the card, from ``state`` (5b's pool, field and
+    moments), cameras
     that differ in yaw, time, field of view and target: (a) a fine block
     of GRAPH_BLOCK through ``train_steps_scan``, (b) GRAPH_RIGS rigs of 3
     through ``train_steps_scan_multicam``, (c) a ``densify_step`` between
@@ -2192,9 +2559,10 @@ def graph_phase(torch, su, state, card):
 
     singles = [cam(i, YAWS_DEG[i % 3]) for i in range(GRAPH_BLOCK)]
     rigs = [[cam(i, yaw) for yaw in YAWS_DEG] for i in range(GRAPH_RIGS)]
-    # the trained pool and field with mid-training moments, as 12a's: no
-    # update is then the sign of a gradient that rounds to zero
-    base = mid_training(torch, state_to(torch, state, dev), 13)
+    # 5b's pool, field and Adam moments: the step is deterministic, so
+    # rows whose second moment is near 0 (moved by the sign of a
+    # gradient) move alike in both
+    base = state_to(torch, state, dev)
     l13 = (tk.launches, tk.bwd_launches)
 
     def eager(st, views, step, sync_check):
@@ -2293,10 +2661,13 @@ def graph_phase(torch, su, state, card):
                tr.train_steps_scan_multicam, 3)
 
     # (c) a densify between two blocks: the second block loads the
-    # densified state into the held graph, no recapture
+    # densified state into the held graph, no recapture.  It starts from
+    # mid-training moments, which move enough opacities under the prune
+    # threshold in a block for the densify to prune (5b's do not)
     graphs.release()
-    s_g, _ = tr.train_steps_scan(state_to(torch, base, dev),
-                                 singles[:GRAPH_SPLIT], *args)
+    s_g, _ = tr.train_steps_scan(
+        mid_training(torch, state_to(torch, base, dev), 13),
+        singles[:GRAPH_SPLIT], *args)
     g = graphs.current()
     statics = {k: v.data_ptr()
                for k, v in state_tensors(s_g).items()}
@@ -2371,6 +2742,16 @@ def graph_phase(torch, su, state, card):
           f"{np.median(ms_dp):.3f} vs {np.median(ms_one):.3f}; peak above "
           f"the states {peak_dp:.2f} GiB ({card})", flush=True)
     launches = (tk.launches - l13[0], tk.bwd_launches - l13[1])
+
+    # (e) two eager steps from one state give the same bits: the single
+    # camera, and 5b's rig with two-class emission (6c runs the Waymo rig)
+    repeat_step(torch, base, tr.train_step, singles[0], args,
+                "headline camera", card)
+    two_class = dataclasses.replace(su.cfg, big_budget=REPEAT_BIG_BUDGET)
+    repeat_step(torch, base, tr.train_step_multicam, rigs[0],
+                args[:5] + (two_class,) + args[6:],
+                f"rig of 3, two-class (big_budget {REPEAT_BIG_BUDGET})",
+                card)
     print(f"13: graph vs eager in {time.time() - t13:.1f} s; "
           f"{launches[0]} forward / {launches[1]} backward launches",
           flush=True)
@@ -2427,8 +2808,8 @@ def main(only=None) -> int:
     t0 = time.time()
     su = headline(torch, dev)
     if only == "13":
-        graph_phase(torch, su, tr.init_state(su.pool, su.deform, su.aabb),
-                    card)
+        graph_phase(torch, su, mid_training(
+            torch, tr.init_state(su.pool, su.deform, su.aabb), 13), card)
         print("chip_smoke: phase 13 alone, not the smoke run", flush=True)
         return 0
     pool, deform, aabb, pipe, cfg, bg, cams = (su.pool, su.deform, su.aabb,
@@ -2525,11 +2906,16 @@ def main(only=None) -> int:
               f"{d['bound'][0] / d['ms']:.3f} of the bound", flush=True)
     del streams
 
+    # 3b. the segment-sum kernel vs plain on a step's calls
+    seg = segsum_phase(torch, su, card)
+
     # 4. the render path through the user entry points, launches counted
+    # (the segment-sum launches from here on, but for the comparisons of
+    # phase 6)
     rasterize_calls = 0
     frame_ms = []
     renders = []
-    tk.launches = tk.bwd_launches = 0
+    tk.launches = tk.bwd_launches = tk.seg_launches = 0
     with torch.no_grad():
         for cam in cams:
             torch.cuda.synchronize()
@@ -2550,10 +2936,14 @@ def main(only=None) -> int:
             renders.append(pkg["render"])
     # the cameras carry no ground truth: frames only.  Two rigs of three
     # (render_multicam: full, dynamic and static per camera) and two flow
-    # renders a camera
+    # renders a camera, replays of two graphs, each capture's warm-up
+    # render launching once more
+    stats4 = {}
     frames = render_pixels(cams, pool, deform, pipe, bg, aabb, 3, "fine", cfg,
-                           compute_metrics=False, return_decomposition=True)
-    rasterize_calls += 5 * len(cams)
+                           compute_metrics=False, return_decomposition=True,
+                           stats=stats4)
+    rasterize_calls += 5 * len(cams) + sum(c[3][0]
+                                           for c in stats4["captures"])
     torch.cuda.synchronize()
     render_launches = (tk.launches, tk.bwd_launches)
     check(render_launches == (rasterize_calls, 0),
@@ -2669,6 +3059,7 @@ def main(only=None) -> int:
     graph13 = graph_phase(torch, su, state, card)
     del state
 
+    seg_compare = tk.seg_launches
     # 6. small scene: GPU vs CPU (plain compositors): render + train step,
     # with the field made anew from its seed, then the renders with the
     # field phase 5 trained in place
@@ -2785,6 +3176,7 @@ def main(only=None) -> int:
     # CPU, from one mid-training state
     small_rig_step(torch, dev, hp, opt, pipe, bg, card)
 
+    seg_compare = tk.seg_launches - seg_compare
     del su, pool, deform, cams, small_pool, cpu_pool, s_gpu, s_cpu
     torch.cuda.empty_cache()
 
@@ -2794,6 +3186,9 @@ def main(only=None) -> int:
 
     # 7. the training CLI, this slice's main path; launches counted over it
     _, argv, out, rec7, (per_view7, sweep7) = cli_phase(torch, dev, card)
+    # 7b. the sweep's replays against direct renders of phase 7's model
+    sweep7b = sweep_graph_phase(torch, rec7, card)
+    rec7["eval_args"] = None
     metrics_on_card(torch, rec7, card)
     train7 = rec7["train_launches"]
 
@@ -2822,7 +3217,8 @@ def main(only=None) -> int:
     path = {"4 render path": render_launches, "5 training slice":
             train_launches, "5b rig step": rig_launches,
             "6c waymo rig": waymo_launches, "7 CLI training": train7,
-            "7 final sweep": sweep7, "8 --eval_only sweep": sweep8,
+            "7 final sweep": sweep7, "7b replayed sweep": sweep7b,
+            "8 --eval_only sweep": sweep8,
             "9 waymo_perf training": train9, "9 waymo_perf sweep": sweep9,
             "10 offline tools": tools10, "11 bench": bench11,
             "12a NCCL world 1": dp12a, "12b two gloo ranks": dp12b,
@@ -2838,6 +3234,12 @@ def main(only=None) -> int:
     check(all(v[0] > 0 and v[1] > 0 for v in (dp12a, dp12b, dp12c)),
           "a data-parallel phase launched no kernel")
     check(graph13[0] > 0 and graph13[1] > 0, "phase 13 launched no kernel")
+    # this process's segment sums over the path (the bench's and the rank
+    # processes' are not counted here)
+    seg_main = tk.seg_launches - seg_compare
+    check(seg_main > 0, "the path launched no segment-sum kernel")
+    print(f"segment-sum launches over this process's phases of the path: "
+          f"{seg_main}", flush=True)
     print(f"smoke run: {time.time() - T_START:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -2857,6 +3259,21 @@ def main(only=None) -> int:
             "bound_by": d["bound"][1],
             "library_ms": None,
         })
+    kernels.append({
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": "s3gaussian_tpu_torch/csrc/segment_sum.cu",
+        # no Pallas kernel: the time rows' VJP (a one-hot product) and the
+        # autodiff scatter-adds that XLA runs for the field's gradients
+        "replaces": "s3gaussian_tpu/ops/gridsample.py:143",
+        "launches": seg_main,
+        "max_abs_err": seg["max_err"],
+        "ms": seg["ms"],
+        "plain_ms": seg["plain_ms"],
+        "bound_ms": seg["bound"][0],
+        "bound_by": seg["bound"][1],
+        "library_ms": seg["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,10 @@ host clock, ending in ``torch.cuda.synchronize()``: ``it_per_s`` is
 steps over seconds.  Beside it, each step's time from CUDA events
 recorded between the replays (median, min, max) and the peak device
 memory, the graph's pool included.  ``render_fps`` times as many
-``render()`` calls without gradient as timed steps, the time shifted by
-1e-6·i, each followed by a host fetch.  The last step must drop no pair
+renders without gradient as timed steps, the time shifted by 1e-6·i,
+each followed by a host fetch: on the card replays of ``render()``
+captured as one CUDA graph, as ``bench.py`` times a jitted ``fwd_only``
+(``bench.py:218-233``); the capture comes first, untimed.  The last step must drop no pair
 and end with a finite loss.
 
 Output keeps ``bench.py``'s lines: the headline ``{"metric":
@@ -262,13 +264,24 @@ class Workload:
 
     def render(self, tshift: float) -> torch.Tensor:
         """The single camera's image at time 0.4 + ``tshift``, no
-        gradient."""
-        cam = self.camera(self._views[0], torch.tensor(
-            0.4, dtype=torch.float32, device=self.bg.device) + tshift)
+        gradient: on the card a replay of the render captured as one CUDA
+        graph (``bench.py`` times a jitted ``fwd_only``), the camera's
+        time in its buffer."""
+        cam = dataclasses.replace(
+            self.camera(self._views[0], torch.tensor(
+                0.4, dtype=torch.float32, device=self.bg.device) + tshift),
+            image=None, depth_map=None)
         with torch.no_grad():
-            return render(cam, self.state.pool, self.state.deform, self.pipe,
-                          self.bg, self.state.aabb, 3, stage="fine",
-                          cfg=self.cfg)["render"]
+            if self.bg.is_cuda:
+                key = ("bench render", id(self), self.state.pool.xyz.data_ptr())
+                return graphs.render_graph(key, self._render, [cam],
+                                           {}).run([cam])
+            return self._render([cam])
+
+    def _render(self, cams: Sequence[Camera]) -> torch.Tensor:
+        return render(cams[0], self.state.pool, self.state.deform, self.pipe,
+                      self.bg, self.state.aabb, 3, stage="fine",
+                      cfg=self.cfg)["render"]
 
 
 def card_line() -> str:
@@ -376,6 +389,7 @@ def run_workload(spec: Spec, n_steps: int, h: int = H, w: int = W,
         for i in range(total):
             float(wl.render(1e-6 * i).reshape(-1)[:4].sum())
         out["render_fps"] = round(total / (time.perf_counter() - t0), 3)
+        graphs.release()
     out["launches"] = [tk.launches - l0[0], tk.bwd_launches - l0[1]]
     out["launches_per_step"] = per_step
     return out

@@ -64,6 +64,23 @@ def load_weights(net: str, device: torch.device | str
     return _load(path, net, str(torch.device(device)))
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_on(device: str):
+    """The input normalisation's shift and scale [1,3,1,1] on ``device``,
+    copied there once: a captured render may not copy from the host."""
+    return tuple(torch.tensor(v, device=device).reshape(1, 3, 1, 1)
+                 for v in (_SHIFT, _SCALE))
+
+
+def available(net: str, device: torch.device | str) -> bool:
+    """True when ``S3G_LPIPS_WEIGHTS`` loads for ``net`` on ``device``."""
+    try:
+        load_weights(net, device)
+    except FileNotFoundError:
+        return False
+    return True
+
+
 @contextlib.contextmanager
 def _ieee_f32_convs():
     """cuDNN runs float32 convolutions in TF32 (10 mantissa bits) when the
@@ -122,8 +139,7 @@ def lpips(pred: torch.Tensor, gt: torch.Tensor,
     """pred/gt: [H, W, 3] in [0, 1] on one device.  A 0-d float32 tensor
     there."""
     wts = load_weights(net, pred.device)
-    shift = torch.tensor(_SHIFT, device=pred.device).reshape(1, 3, 1, 1)
-    scale = torch.tensor(_SCALE, device=pred.device).reshape(1, 3, 1, 1)
+    shift, scale = _norm_on(str(pred.device))
 
     def prep(img):
         x = img.float().permute(2, 0, 1)[None] * 2 - 1

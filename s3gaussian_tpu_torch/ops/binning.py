@@ -49,6 +49,9 @@ class PairKeys(NamedTuple):
     big_sel: Optional[torch.Tensor] = None      # [NB] pool ids of the bigs
     big_granted: Optional[torch.Tensor] = None  # [NR] slot got a periphery
     big_rank: Optional[torch.Tensor] = None     # [NR] periphery section index
+    # [N] bool the pool visibility that ordered the compaction: the pair
+    # stream's backward expands render slots back to pool rows by its rank
+    visible: Optional[torch.Tensor] = None
 
 
 def float_bits(x: torch.Tensor) -> torch.Tensor:
@@ -247,7 +250,8 @@ def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
     return PairKeys(sel=sel, sel_visible=sel_visible, keys=keys.reshape(-1),
                     two_key=use_two_key, n_visible=n_visible,
                     overflow_rect=overflow_rect,
-                    overflow_visible=overflow_visible, **extras)
+                    overflow_visible=overflow_visible, visible=visible,
+                    **extras)
 
 
 def sort_pairs(pk: PairKeys):

@@ -12,14 +12,15 @@ Dataflow, in three stages that ``chip_smoke.py`` also times one by one:
   ``color = rgb + final_T·bg``.
 
 Keys, the sort and the tile ranges are computed on detached tensors.  The
-gather stays differentiable: its backward sums the per-pair gradients of
-the backward compositor into the render set and the pool, which replaces
-the JAX package's un-sort and rect-axis reshape-sum (a TPU layout
-choice).  With two-class emission the columns are the render set
-followed by the granted bigs (``PairKeys.big_sel``), so the gather's
-backward also sums each periphery's gradients into its pool row, where
-JAX adds them through ``big_rank``.  Slots past ``n_pairs`` get zero
-gradient from the kernel.
+gather is ``SortStreamGather``, the counterpart of the JAX package's
+``composite_core`` custom VJP (``s3gaussian_tpu/ops/rasterizer.py:226-305``),
+whose backward has no scatter: the per-pair gradients past ``n_pairs``
+are zeroed, un-sorted by emission slot (a permutation: each slot is
+written once), summed over the rect axis contiguously (over the two
+sections' strides, 4 and ``rect_cap - 4``, plus each granted big's
+periphery at ``big_rank``, with two-class emission), and expanded back to
+the pool by rank, a gather.  Autograd of ``data[:, gid]`` would
+accumulate through ``index_put_``.
 Every other gradient (EWA projection, covariance, SH) is autograd.
 """
 
@@ -98,6 +99,68 @@ def project_and_key(settings: RasterSettings, means3d: torch.Tensor,
     return proj, pk, feat_pool
 
 
+class SortStreamGather(torch.autograd.Function):
+    """The 10 data rows of the pair stream: ``pool_rows`` [10, N] at each
+    sorted pair's column of the render set (``sel``, then the granted
+    bigs' ``big_sel`` with two-class emission).  The backward is JAX's:
+    see the module's docstring."""
+
+    @staticmethod
+    def forward(ctx, pool_rows, slots, n_pairs, pk: PairKeys, rect_cap: int,
+                m: int):
+        nr = pk.sel.shape[0]
+        n_pool = pool_rows.shape[1]
+        data = pool_rows if nr >= n_pool else pool_rows[:, pk.sel]
+        if pk.big_sel is None:
+            gid = slots // rect_cap
+        else:
+            # two sections: cores at stride 4, then the bigs' peripheries
+            data = torch.cat([data, pool_rows[:, pk.big_sel]], 1)
+            m1 = 4 * nr
+            gid = torch.where(slots < m1, slots // 4,
+                              nr + (slots - m1) // (rect_cap - 4))
+        two_class = pk.big_sel is not None
+        ctx.save_for_backward(slots, n_pairs, pk.visible,
+                              pk.big_granted if two_class else None,
+                              pk.big_rank if two_class else None)
+        ctx.dims = (nr, n_pool, rect_cap, m,
+                    pk.big_sel.shape[0] if two_class else 0)
+        return data[:, gid]
+
+    @staticmethod
+    def backward(ctx, g):
+        slots, n_pairs, visible, big_granted, big_rank = ctx.saved_tensors
+        nr, n_pool, rect_cap, m, nb = ctx.dims
+        bp = slots.shape[0]
+        # the pairs past n_pairs (the invalid tail) carry no gradient
+        live = torch.arange(bp, device=g.device) < n_pairs
+        g = torch.where(live[None, :], g, 0.0)
+        # un-sort by emission slot: a permutation, so each slot is written
+        # once (slots the budget cut keep zero)
+        d_slot = g.new_zeros((g.shape[0], m)).index_copy_(1, slots, g)
+        if nb > 0:
+            m1 = 4 * nr
+            d_compact = d_slot[:, :m1].reshape(-1, nr, 4).sum(-1)
+            d_big = d_slot[:, m1:].reshape(-1, nb, rect_cap - 4).sum(-1)
+            # periphery row i is the i-th granted big in render-slot order
+            d_compact = d_compact + torch.where(
+                big_granted[None, :],
+                d_big[:, torch.clamp(big_rank, 0, nb - 1).long()], 0.0)
+        else:
+            d_compact = d_slot.reshape(-1, nr, rect_cap).sum(-1)
+        if nr >= n_pool:
+            # no compaction: render slot j is pool row j
+            d_pool = torch.where(visible[None, :], d_compact, 0.0)
+        else:
+            # the compaction is stable, so pool row i sits at render slot
+            # rank(i): a gather, not a scatter
+            rank = torch.cumsum(visible.to(torch.int64), 0) - 1
+            d_pool = torch.where((visible & (rank < nr))[None, :],
+                                 d_compact[:, torch.clamp(rank, 0, nr - 1)],
+                                 0.0)
+        return d_pool, None, None, None, None, None
+
+
 def sort_stream(feat_pool: torch.Tensor, pk: PairKeys, n_tiles: int,
                 rect_cap: int, pair_budget: int):
     """Stage 2: one stable (key, slot) sort, one gather of the 10 data rows
@@ -106,25 +169,14 @@ def sort_stream(feat_pool: torch.Tensor, pk: PairKeys, n_tiles: int,
     m = pk.keys.shape[0]
     bp = min(m, pair_budget)
     sorted_tile, sorted_slot = sort_pairs(pk)
-    pool_rows = feat_pool[:comp.N_DATA_ROWS]
-    nr = pk.sel.shape[0]
-    data = pool_rows if nr >= feat_pool.shape[1] else pool_rows[:, pk.sel]
-    slots = sorted_slot[:bp]
-    if pk.big_sel is None:
-        gid = slots // rect_cap
-    else:
-        # two sections: cores at stride 4, then the bigs' peripheries
-        data = torch.cat([data, pool_rows[:, pk.big_sel]], 1)
-        m1 = 4 * nr
-        gid = torch.where(slots < m1, slots // 4,
-                          nr + (slots - m1) // (rect_cap - 4))
-    rows = data[:, gid]
+    tile_starts, n_pairs, overflow_pairs = tile_ranges(sorted_tile, n_tiles,
+                                                       bp)
+    rows = SortStreamGather.apply(feat_pool[:comp.N_DATA_ROWS],
+                                  sorted_slot[:bp], n_pairs, pk, rect_cap, m)
     const = torch.zeros(comp.PAIR_FEAT_DIM - comp.N_DATA_ROWS, bp,
                         dtype=rows.dtype, device=rows.device)
     const[0] = 1.0                                   # the FONE channel
     stream = torch.cat([rows, const], 0).contiguous()
-    tile_starts, n_pairs, overflow_pairs = tile_ranges(sorted_tile, n_tiles,
-                                                       bp)
     return stream, tile_starts, n_pairs, overflow_pairs
 
 

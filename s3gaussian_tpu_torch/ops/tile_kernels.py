@@ -1,7 +1,9 @@
 """The tile compositor's CUDA kernels, their wrappers and the autograd
 function around them (port of ``s3gaussian_tpu/ops/tile_kernels.py``:
 ``composite_fwd_pallas`` → ``csrc/composite_fwd.cu``,
-``composite_bwd_pallas`` → ``csrc/composite_bwd.cu``).
+``composite_bwd_pallas`` → ``csrc/composite_bwd.cu``), and the build and
+launch counts of every CUDA kernel of the port (also
+``csrc/segment_sum.cu``, wrapped by ``ops/segsum.py``).
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C entry point, keyed by a hash of its source,
@@ -33,20 +35,23 @@ from s3gaussian_tpu_torch.ops.composite import (N_OUT_ROWS, PAIR_FEAT_DIM,
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"composite_fwd": _PKG / "csrc" / "composite_fwd.cu",
-           "composite_bwd": _PKG / "csrc" / "composite_bwd.cu"}
-HEADER = _PKG / "csrc" / "composite_common.cuh"   # included by both
+           "composite_bwd": _PKG / "csrc" / "composite_bwd.cu",
+           "segment_sum": _PKG / "csrc" / "segment_sum.cu"}
+HEADER = _PKG / "csrc" / "composite_common.cuh"   # the compositors' own
 BUILD_DIR = _PKG.parent / "build" / "s3gaussian_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches made by composite_fwd / composite_bwd (CPU calls do not
-# count).  A launch made while the stream captures a CUDA graph runs only
-# when the graph is replayed: it goes to ``captured`` instead, and the
-# graph's owner (train/graphs.py) adds what it captured once per replay
-# through ``count_replay``
+# kernel launches made by composite_fwd / composite_bwd /
+# segsum.sum_ranges (CPU calls do not count).  A launch made while the
+# stream captures a CUDA graph runs only when the graph is replayed: it
+# goes to ``captured`` instead, and the graph's owner (train/graphs.py)
+# adds what it captured once per replay through ``count_replay``
 launches = 0
 bwd_launches = 0
-captured = [0, 0]
+seg_launches = 0
+captured = [0, 0]           # forward, backward
+seg_captured = 0
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # The launch geometry both kernels are compiled for
@@ -162,30 +167,39 @@ def _load(name: str) -> ctypes.CDLL:
         dims = [i32] * 6
         if name == "composite_fwd":
             fn.argtypes = [ptr, i64, ptr, ptr, *dims, ptr]
-        else:
+        elif name == "composite_bwd":
             fn.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, *dims, ptr]
+        else:       # vals, perm, offs, n_ranges, d, out, stream
+            fn.argtypes = [ptr, ptr, ptr, i64, i32, ptr, ptr]
         fn.restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]
 
 
 def _count(kind: int) -> None:
-    """One launch of the forward (0) or backward (1) kernel."""
-    global launches, bwd_launches
+    """One launch of the forward (0), backward (1) or segment-sum (2)
+    kernel."""
+    global launches, bwd_launches, seg_launches, seg_captured
     if torch.cuda.is_current_stream_capturing():
-        captured[kind] += 1
+        if kind == 2:
+            seg_captured += 1
+        else:
+            captured[kind] += 1
     elif kind == 0:
         launches += 1
-    else:
+    elif kind == 1:
         bwd_launches += 1
+    else:
+        seg_launches += 1
 
 
-def count_replay(fwd: int, bwd: int) -> None:
-    """A replay of a CUDA graph that captured ``fwd`` forward and ``bwd``
-    backward launches launched them again."""
-    global launches, bwd_launches
+def count_replay(fwd: int, bwd: int, seg: int = 0) -> None:
+    """A replay of a CUDA graph that captured ``fwd`` forward, ``bwd``
+    backward and ``seg`` segment-sum launches launched them again."""
+    global launches, bwd_launches, seg_launches
     launches += fwd
     bwd_launches += bwd
+    seg_launches += seg
 
 
 def _check_stream(name: str, pair_feat: torch.Tensor,

@@ -26,6 +26,11 @@ stage reaches the captured step as a tensor at a fixed address:
     moments, a checkpoint restore), which the pool's fixed capacity
     makes possible without a recapture.
 
+The evaluation sweep's renders are captured the same way
+(``RenderGraph``, ``render_graph``): static camera buffers, the other
+inputs that differ between replays (the flow colours) as static
+buffers, outputs at fixed addresses, the same one-graph slot.
+
 A capture first runs the step once on a copy of the state, on the side
 stream the capture then uses, as PyTorch asks of a whole-step capture:
 lazy initialisations (library handles and workspaces, constant caches,
@@ -60,7 +65,7 @@ from s3gaussian_tpu_torch.train.trainer import (TrainState, small_aux,
 Step = Callable[..., Tuple[TrainState, Dict[str, Any]]]
 
 
-def _camera_tensors(cam: Camera) -> Dict[str, torch.Tensor]:
+def camera_tensors(cam: Camera) -> Dict[str, torch.Tensor]:
     return {f.name: getattr(cam, f.name) for f in dataclasses.fields(cam)
             if isinstance(getattr(cam, f.name), torch.Tensor)}
 
@@ -79,9 +84,60 @@ def graph_key(step: Step, state: TrainState, view, stage: str,
     return (step.__module__, step.__qualname__, stage,
             isinstance(view, (list, tuple)), len(cams),
             cams[0].image_height, cams[0].image_width,
-            tuple(tuple(sorted(_camera_tensors(c))) for c in cams),
+            tuple(tuple(sorted(camera_tensors(c))) for c in cams),
             state.pool.capacity, str(state.pool.xyz.device), repr(hp),
             repr(opt), repr(pipe), repr(cfg), float(spatial_lr_scale))
+
+
+def capture(dev: torch.device, warmup: Callable[[], Any],
+            body: Callable[[], Any]):
+    """``body`` captured as one CUDA graph on a side stream, after
+    ``warmup`` ran there once (lazy initialisations: library handles and
+    workspaces, constant caches, an NCCL communicator).  Returns (graph,
+    body's outputs, warm-up ms, capture ms, compositor launches
+    captured (forward, backward), segment-sum launches captured)."""
+    # a collective's watchdog queries events from its own thread while
+    # the capture runs: only this thread's calls must be capture-safe
+    mode = ("thread_local" if torch.distributed.is_available()
+            and torch.distributed.is_initialized() else "global")
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    t0 = time.perf_counter()
+    with torch.cuda.stream(side):
+        warmup()
+    side.synchronize()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    graph = torch.cuda.CUDAGraph()
+    before = list(tk.captured) + [tk.seg_captured]
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
+        out = body()
+    torch.cuda.synchronize(dev)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    return (graph, out, warmup_ms, capture_ms,
+            (tk.captured[0] - before[0], tk.captured[1] - before[1]),
+            tk.seg_captured - before[2])
+
+
+def static_cameras(cams: Sequence[Camera], dev: torch.device
+                   ) -> List[Camera]:
+    """Copies of ``cams`` whose tensors are the graph's buffers on
+    ``dev``."""
+    return [dataclasses.replace(c, **{
+        k: v.to(dev).clone() for k, v in camera_tensors(c).items()})
+        for c in cams]
+
+
+def fill_cameras(static: Sequence[Camera], cams: Sequence[Camera]) -> None:
+    """Stream-ordered copies of ``cams``' tensors into the buffers of
+    ``static``."""
+    if len(cams) != len(static):
+        raise ValueError(f"{len(cams)} cameras for a graph of "
+                         f"{len(static)}")
+    for buf_cam, cam in zip(static, cams):
+        src = camera_tensors(cam)
+        for name, buf in camera_tensors(buf_cam).items():
+            buf.copy_(src[name], non_blocking=True)
 
 
 class StepGraph:
@@ -99,9 +155,7 @@ class StepGraph:
         self.state = state
         dev = state.pool.xyz.device
         self.rig = isinstance(view, (list, tuple))
-        self.cams = [dataclasses.replace(c, **{
-            k: v.to(dev).clone() for k, v in _camera_tensors(c).items()})
-            for c in _cameras(view)]
+        self.cams = static_cameras(_cameras(view), dev)
         self.sh = torch.zeros((), dtype=torch.int32, device=dev)
         self.bg = bg.to(dev).clone()
         self.replays = 0
@@ -113,29 +167,13 @@ class StepGraph:
             return {**small_aux(aux), "radii": aux["radii"],
                     "visible": aux["visible"]}
 
-        # a collective's watchdog queries events from its own thread while
-        # the capture runs: only this thread's calls must be capture-safe
-        mode = ("thread_local" if torch.distributed.is_available()
-                and torch.distributed.is_initialized() else "global")
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
+        def warmup():
             scratch = clone_state(state)
             body(scratch)
-            del scratch
-        side.synchronize()
-        self.warmup_ms = (time.perf_counter() - t0) * 1e3
-        self.graph = torch.cuda.CUDAGraph()
-        before = list(tk.captured)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, stream=side,
-                              capture_error_mode=mode):
-            self.out = body(state)
-        torch.cuda.synchronize(dev)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.launches = (tk.captured[0] - before[0],
-                         tk.captured[1] - before[1])
+
+        (self.graph, self.out, self.warmup_ms, self.capture_ms,
+         self.launches, self.seg_launches) = capture(
+            dev, warmup, lambda: body(state))
 
     def load(self, state: TrainState) -> TrainState:
         """``load_state`` into this graph's static state."""
@@ -145,14 +183,7 @@ class StepGraph:
             bg: torch.Tensor) -> Dict[str, Any]:
         """Fill the camera buffers, the degree and the background, then
         replay the step once."""
-        cams = _cameras(view)
-        if len(cams) != len(self.cams):
-            raise ValueError(f"{len(cams)} cameras for a graph of "
-                             f"{len(self.cams)}")
-        for static, cam in zip(self.cams, cams):
-            src = _camera_tensors(cam)
-            for name, buf in _camera_tensors(static).items():
-                buf.copy_(src[name], non_blocking=True)
+        fill_cameras(self.cams, _cameras(view))
         if isinstance(active_sh_degree, torch.Tensor):
             self.sh.copy_(active_sh_degree)
         else:
@@ -160,7 +191,7 @@ class StepGraph:
         self.bg.copy_(bg, non_blocking=True)
         self.graph.replay()
         self.replays += 1
-        tk.count_replay(*self.launches)
+        tk.count_replay(*self.launches, self.seg_launches)
         return self.out
 
 
@@ -185,10 +216,57 @@ def load_state(static: TrainState, state: TrainState) -> TrainState:
     return static
 
 
-_current: Optional[StepGraph] = None
+class RenderGraph:
+    """A render of a camera or a rig captured as one CUDA graph (the
+    counterpart of the JAX sweep's ``_jit_render`` and ``_jit_render_mc``
+    programs): ``fn(cams, **inputs)`` returns a dict of tensors.
+    ``run(cams, **inputs)`` copies the cameras' tensors and the inputs
+    into the graph's buffers, replays, and returns the outputs, the
+    graph's own tensors, which the next replay overwrites.  Whatever
+    ``fn`` reads besides (the pool, the field, the aabb) is read where it
+    was at capture."""
+
+    def __init__(self, key: tuple, fn: Callable[..., Dict[str, Any]],
+                 cams: Sequence[Camera], inputs: Dict[str, torch.Tensor]):
+        dev = cams[0].world_view.device
+        self.key = key
+        self.cams = static_cameras(cams, dev)
+        self.inputs = {k: v.to(dev).clone() for k, v in inputs.items()}
+        self.replays = 0
+
+        def body():
+            return fn(self.cams, **self.inputs)
+
+        (self.graph, self.out, self.warmup_ms, self.capture_ms,
+         self.launches, self.seg_launches) = capture(dev, body, body)
+
+    def run(self, cams: Sequence[Camera],
+            **inputs: torch.Tensor) -> Dict[str, Any]:
+        fill_cameras(self.cams, cams)
+        for k, v in inputs.items():
+            self.inputs[k].copy_(v, non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        tk.count_replay(*self.launches, self.seg_launches)
+        return self.out
 
 
-def current() -> Optional[StepGraph]:
+def render_graph(key: tuple, fn: Callable[..., Dict[str, Any]],
+                 cams: Sequence[Camera], inputs: Dict[str, torch.Tensor]
+                 ) -> RenderGraph:
+    """The held graph when its key is ``key``, else ``fn`` captured on
+    ``cams`` and ``inputs`` in its place."""
+    global _current
+    if _current is None or _current.key != key:
+        release()
+        _current = RenderGraph(key, fn, cams, inputs)
+    return _current
+
+
+_current: Optional[StepGraph | RenderGraph] = None
+
+
+def current() -> Optional[StepGraph | RenderGraph]:
     """The graph held now, or None."""
     return _current
 

@@ -1028,3 +1028,188 @@ def test_cuda_parallel_block_over_gloo_raises(cuda_device, tmp_path):
         assert graphs.current() is None
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# the pair stream's and the field's backward: no atomics, the same bits
+# on repeat
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rig", [False, True])
+def test_cuda_eager_step_repeats_bit_for_bit(cuda_device, rig):
+    """Two eager steps from one state (single camera, or a rig of 3 with
+    two-class emission): the same loss, parameters, moments and
+    statistics, bit for bit."""
+    import dataclasses
+
+    from s3gaussian_tpu_torch.train import trainer as tr
+    from s3gaussian_tpu_torch.train.checkpoints import state_tensors
+
+    state, args = _graph_setup(cuda_device, seed=14)
+    cams = _graph_cameras(cuda_device, 3, seed=24)
+    if rig:
+        args = args[:4] + (dataclasses.replace(args[4], big_budget=256),) \
+            + args[5:]
+    runs = []
+    for _ in range(2):
+        st, aux = (tr.train_step_multicam(_copy(state), cams, "fine", *args)
+                   if rig else tr.train_step(_copy(state), cams[0], "fine",
+                                             *args))
+        runs.append((state_tensors(st), aux["metrics"]["loss"]))
+    (a, la), (b, lb) = runs
+    assert torch.equal(la, lb)
+    assert [k for k in a if not torch.equal(a[k], b[k])] == []
+
+
+# --------------------------------------------------------------------------
+# the sweep's renders as CUDA graphs
+# --------------------------------------------------------------------------
+
+def _sweep_setup(dev, n_rigs=2):
+    """The graph state's pool and field, and ``n_rigs`` rigs of 3 cameras
+    at one time each, with images and dynamic masks."""
+    import dataclasses
+
+    state, args = _graph_setup(dev, seed=15)
+    cams = _graph_cameras(dev, 3 * n_rigs, seed=25)
+    out = []
+    for i, c in enumerate(cams):
+        mask = np.zeros((H, W), bool)
+        if i != 1:                          # one view's mask stays empty
+            mask[10:30, 20:60] = True
+        out.append(dataclasses.replace(
+            c, time=cams[3 * (i // 3)].time.clone(),
+            dynamic_mask=torch.from_numpy(mask).to(dev)))
+    return state, args, out
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_renders_never_wait_for_the_host(cuda_device):
+    """One eager render of each kind the sweep captures: a rig with the
+    decomposition and the metrics, a camera with flow colours, under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from s3gaussian_tpu_torch.eval import video
+
+    state, args, cams = _sweep_setup(cuda_device, 1)
+    sh, hp, opt, pipe, cfg, _, bg = args
+    rig_fn = video._sweep_render(state.pool, state.deform, pipe, bg,
+                                 state.aabb, sh, "fine", cfg, True, True,
+                                 True, True, False)
+    flow_fn = video._sweep_render(state.pool, state.deform, pipe, bg,
+                                  state.aabb, sh, "fine", cfg, False, False,
+                                  False, False, False)
+    rig = [video._slim(c, True) for c in cams]
+    one = [video._slim(cams[0], False)]
+    colors = torch.rand((state.pool.capacity, 3), device=cuda_device)
+    with torch.no_grad():
+        rig_fn(rig)
+        flow_fn(one, override_color=colors)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rig_fn(rig)
+            flow_fn(one, override_color=colors)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_replayed_sweep_matches_direct_renders(cuda_device):
+    """``render_pixels`` on the card (replays of a rig graph and a flow
+    graph) against ``render_multicam`` and ``render`` called directly:
+    frames within 5e-4 of the clipped render beyond the uint8 step, flow
+    frames included; depth atol 5e-4 rtol 1e-4; per-view metrics within
+    1e-5; one capture a kind, the graph released at the end, the
+    launches a replay counts."""
+    from s3gaussian_tpu_torch.eval import video
+    from s3gaussian_tpu_torch.eval.visualization import scene_flow_to_rgb
+    from s3gaussian_tpu_torch.render.renderer import render, render_multicam
+    from s3gaussian_tpu_torch.train import graphs
+
+    state, args, cams = _sweep_setup(cuda_device, 2)
+    sh, hp, opt, pipe, cfg, _, bg = args
+    kw = dict(pool=state.pool, deform=state.deform, pipe=pipe, bg=bg,
+              aabb=state.aabb)
+    stats = {}
+    graphs.release()
+    before = (tk.launches, tk.bwd_launches)
+    frames = video.render_pixels(cams, active_sh_degree=sh, stage="fine",
+                                 cfg=cfg, stats=stats, **kw)
+    assert graphs.current() is None
+    assert [(w, n) for w, _, _, n in stats["captures"]] == [
+        ("rig", (9, 0)), ("flow", (1, 0))]
+    assert stats["replays"] == 2 + 2 * len(cams)
+    # replays count what their graph captured, the warm-ups once more
+    assert (tk.launches - before[0], tk.bwd_launches - before[1]) == (
+        2 * 9 + 2 * len(cams) + 10, 0)
+
+    def close(frame, img):
+        want = torch.clamp(img, 0, 1).permute(1, 2, 0).double().cpu().numpy()
+        assert np.abs(frame - want).max() <= 0.5 / 255 + 5e-4
+
+    pv = frames["metrics_per_view"]
+    dx, masked = [], {"masked_psnr": [], "masked_ssim": []}
+    with torch.no_grad():
+        for r in range(2):
+            rig = cams[3 * r:3 * r + 3]
+            pkg = render_multicam(rig, state.pool, state.deform, pipe, bg,
+                                  state.aabb, sh, stage="fine",
+                                  return_decomposition=True, cfg=cfg)
+            for b, cam in enumerate(rig):
+                i = 3 * r + b
+                close(frames["rgbs"][i], pkg["render"][b])
+                close(frames["dynamic_rgbs"][i], pkg["render_d"][b])
+                close(frames["static_rgbs"][i], pkg["render_s"][b])
+                d = pkg["depth"][b].cpu().numpy()
+                np.testing.assert_allclose(frames["depths"][i], d, atol=5e-4,
+                                           rtol=1e-4)
+                vals = video.view_metrics(pkg["render"][b], cam)
+                for k in ("psnr", "ssim"):
+                    assert abs(pv[k][i] - vals[k]) <= 1e-5, k
+                for k in masked:
+                    if k in vals:
+                        masked[k].append(vals[k])
+                dx.append(pkg["dx"])
+        for k, v in masked.items():
+            np.testing.assert_allclose(pv[k], v, rtol=0, atol=1e-5)
+        assert len(masked["masked_psnr"]) == len(cams) - 1
+        n = len(cams)
+        for i, cam in enumerate(cams):
+            for key, j in (("forward_flows", min(i + 9, n - 1)),
+                           ("backward_flows", max(i - 9, 0))):
+                colors = scene_flow_to_rgb(dx[j] - dx[i], flow_max_radius=2.0)
+                img = render(cam, state.pool, state.deform, pipe, bg,
+                             state.aabb, sh, stage="fine",
+                             override_color=colors, cfg=cfg)["render"]
+                close(frames[key][i], img)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 32, 64, 100, 128])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_cuda_segment_sum_matches_plain(cuda_device, d, with_perm):
+    """The segment-sum kernel against its plain version on the card:
+    ranges of 0 to 40 rows (empty ones included), read through a
+    permutation or in place; max abs error within 1e-6·max|plain|, the
+    same bits on repeat, one launch counted a call."""
+    from s3gaussian_tpu_torch.ops import segsum
+
+    rng = np.random.default_rng(d)
+    k = 5000
+    vals = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(
+        cuda_device)
+    perm = (torch.from_numpy(rng.permutation(k)).to(cuda_device)
+            if with_perm else None)
+    lens = rng.integers(0, 41, 400)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    offs = torch.from_numpy(np.minimum(offs, k)).to(cuda_device)
+    before = tk.seg_launches
+    got = segsum.sum_ranges(vals, perm, offs)
+    again = segsum.sum_ranges(vals, perm, offs)
+    assert tk.seg_launches - before == 2
+    want = segsum.ranges_torch(vals, perm, offs)
+    assert got.shape == (400, d) and torch.equal(got, again)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
