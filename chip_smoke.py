@@ -159,11 +159,27 @@ last line):
      warn_only=True)`` as a diagnostic (what PyTorch flags is printed).
      ``python3 chip_smoke.py --phase 13`` runs the build and this phase
      alone, on a fresh headline state with mid-training moments, and
-     prints no result line.
+     prints no result line;
+ 14. the reference's scene matrix (run after 10): a 21-frame clip of
+     phase 7's street (``write_clip``, 640x960, phase 7's density) and
+     the default model, phase 9's cadence (40 coarse + 80 fine steps):
+     (a) ``arguments/nvs.py`` on frames 0-10 through ``train_cli.main``
+     in this process (phase 7's gates, frame 10's cameras held out, the
+     sweep's test, train and full splits), (b) ``static_nvs.py``
+     likewise (no position head: no decomposition or flow renders, no
+     ``heads.pos``, no split PLY), (c) ``stage2.py`` merged (frames
+     11-20) from (a)'s checkpoint (the field the prior's bit for bit
+     after the transplant; frame 11 at time 11/20), (d) ``stage2_nvs.py``
+     merged through ``python -m s3gaussian_tpu_torch.tools.run_scenes``
+     in a process of its own, then ``scripts/cal.py`` over its output;
+     it/s per stage, reader and sweep seconds, peak memory per run.
+     ``python3 chip_smoke.py --phase 14`` runs the build and this phase
+     alone and prints no result line.
 
 Then the compositor launches of every phase that drives the port's
 paths (4, 5, 5b, 6c, 7, 7b's replayed sweep, 8, 9, 10, 11, 12a-c, 13,
-12b and 12c summed over both ranks; not the comparisons of 3, 6 and 6b),
+14a-c, 12b and 12c summed over both ranks; not the comparisons of 3, 6
+and 6b),
 the segment-sum launches of this process's phases from 4 on but 6 and 6b
 (the bench's and the rank processes' run in their own processes and are
 not counted), one JSON line with the three kernels (their launches over
@@ -174,16 +190,19 @@ The port imports no jax; neither does this script.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -288,6 +307,14 @@ WAYMO_WARMUP, WAYMO_STEPS = 1, 3
 # phase 9: arguments/waymo_perf.py on phase 7's clip, depth cut further
 # (rig steps of 3 cameras), phase 7's cadence
 PERF_COARSE, PERF_FINE = 40, 80
+# phase 14: the reference's scene matrix on a longer clip of phase 7's
+# street (frames 0-20, the clip's directory name its scene id): phase 1
+# on frames 0-10, phase 2 on 11-20 from 14a's field, phase 9's cadence;
+# stage2_nvs's stride cut so that its 10-frame window holds frame 20 out;
+# the time limit of run_scenes' process
+SCENE_CLIP, SCENE_FRAMES, SCENE_STAGE1_END = "street", 21, 10
+SCENE_WINDOW, SCENE_NVS_STRIDE, SCENE_TIMEOUT_S = (11, 20), 9, 600
+SCENE_COARSE, SCENE_FINE = PERF_COARSE, PERF_FINE
 # phase 12: data parallelism on the one card.  12b: two gloo ranks at the
 # headline, rank r's camera yawed DP_YAWS[r] (a rig of YAWS_DEG at
 # DP_RIG_TIMES[r] for the rig steps); 12c: the CLI on phase 7's clip, depth
@@ -907,19 +934,31 @@ def cli_hooks(torch, rec):
                 os.environ[k] = v
 
 
-def check_sweep(torch, rec, out, step, card, tag):
-    """Gates of the one eval sweep ``rec`` holds (the train and full
-    splits of the clip) and its printed numbers.  Returns {split:
-    per-view metrics} and the sweep's compositor launches."""
+def check_sweep(torch, rec, out, step, card, tag, splits=None, dx=True):
+    """Gates of the one eval sweep ``rec`` holds and its printed numbers.
+    ``splits`` maps each split, in the sweep's order, to its camera count
+    (phase 7's clip: train and full, 30 each); ``dx`` says whether the
+    field has a position head (without one there are no dynamic/static
+    renders and no flow renders, nor flow renders in a split of one rig).
+    Returns {split: per-view metrics} and the sweep's compositor
+    launches."""
+    splits = splits or {s: CLIP_FRAMES * CLIP_CAMS for s in SWEEP_SPLITS}
     ev = rec["evals"][-1]
-    n_cams = CLIP_FRAMES * CLIP_CAMS
     check(ev["step"] == step and ev["stage"] == "fine",
           f"{tag}: sweep at {ev['stage']} {ev['step']}, not fine {step}")
-    check(set(ev["results"]) == set(SWEEP_SPLITS),
-          f"{tag}: sweep splits {sorted(ev['results'])}")
+    check(list(ev["results"]) == list(splits),
+          f"{tag}: sweep splits {list(ev['results'])}, not {list(splits)}")
     mdir = os.path.join(out, "eval", "metrics")
     per_view = {}
-    for split, sp in zip(SWEEP_SPLITS, rec["splits"][-len(SWEEP_SPLITS):]):
+    recs = rec["splits"][-len(splits):]
+    want_launches = [0, 0]
+    for (split, n_cams), sp in zip(splits.items(), recs):
+        n_rigs = n_cams // CLIP_CAMS
+        has_flow = dx and n_rigs > 1
+        # full, dynamic and static renders a camera, or the full alone
+        per_cam = 3 if dx else 1
+        keys = [k for k in SWEEP_FRAMES if (has_flow or "flows" not in k)
+                and (dx or k in ("rgbs", "gt_rgbs", "depths"))]
         files = [f for f in os.listdir(mdir)
                  if f.startswith(f"{step}_images_{split}_")]
         check(len(files) >= 1, f"{tag}: no metrics JSON for {split}")
@@ -931,19 +970,16 @@ def check_sweep(torch, rec, out, step, card, tag):
               f"{tag} {split}: metrics {m}")
         check(m == ev["results"][split], f"{tag} {split}: JSON differs")
         check(sp["n"] == n_cams and all(
-            sp["frames"].get(k) == n_cams for k in SWEEP_FRAMES),
+            sp["frames"].get(k) == n_cams for k in keys) and not any(
+            k in sp["frames"] for k in set(SWEEP_FRAMES) - set(keys)),
             f"{tag} {split}: frames {sp['frames']} for {sp['n']} cameras")
         vdir = os.path.join(out, "eval", f"{split}_set_{step}")
         written = set(os.listdir(vdir))
-        for key in SWEEP_FRAMES:
-            pngs = {f"{key}_{i:03d}.png" for i in range(CLIP_FRAMES)}
+        for key in keys:
+            pngs = {f"{key}_{i:03d}.png" for i in range(n_rigs)}
             check(f"{key}.mp4" in written or pngs <= written,
                   f"{tag} {split}: no video or PNGs of {key}")
         per_view[split] = sp["per_view"]
-    splits = rec["splits"][-len(SWEEP_SPLITS):]
-    n_rigs = n_cams // CLIP_CAMS
-    want_launches = [0, 0]
-    for split, sp in zip(SWEEP_SPLITS, splits):
         st = sp["stats"]
         ovf = st["overflow"]
         check(ovf["overflow_visible"] == ovf["overflow_pairs"] == 0,
@@ -951,14 +987,16 @@ def check_sweep(torch, rec, out, step, card, tag):
         # one capture a kind of render, the rig's and the flow renders'
         # (3 cameras x full, dynamic and static; one camera)
         check([(w, launches) for w, _, _, launches in st["captures"]]
-              == [("rig", (3 * CLIP_CAMS, 0)), ("flow", (1, 0))],
+              == [("rig", (per_cam * CLIP_CAMS, 0))]
+              + ([("flow", (1, 0))] if has_flow else []),
               f"{tag} {split}: captures {st['captures']}")
-        check(st["replays"] == n_rigs + 2 * n_cams,
+        n_flows = 2 * n_cams if has_flow else 0
+        check(st["replays"] == n_rigs + n_flows,
               f"{tag} {split}: {st['replays']} replays for {n_rigs} rigs "
-              f"and {2 * n_cams} flow renders")
+              f"and {n_flows} flow renders")
         # a replay counts what its graph captured; a capture's warm-up
         # render launches it once more
-        want_launches[0] += n_cams * 5 + sum(
+        want_launches[0] += n_cams * per_cam + n_flows + sum(
             c[3][0] for c in st["captures"])
     check(ev["launches"] == tuple(want_launches),
           f"{tag}: {ev['launches']} forward/backward launches in the sweep, "
@@ -967,21 +1005,22 @@ def check_sweep(torch, rec, out, step, card, tag):
         f"{split} {sp['n']} cameras {sp['s']:.3f} s, psnr "
         f"{m['psnr']:.3f} ssim {m['ssim']:.4f} lpips {m['lpips']:.4f} "
         f"masked psnr {m['masked_psnr']:.3f} ssim {m['masked_ssim']:.4f}"
-        for split, sp, m in zip(SWEEP_SPLITS, splits,
-                                (ev["results"][s] for s in SWEEP_SPLITS)))
+        for split, sp, m in zip(splits, recs,
+                                (ev["results"][s] for s in splits)))
         + f"; whole sweep {ev['s']:.3f} s ({card})", flush=True)
     print(f"{tag}: sweep per split (host clock): " + "; ".join(
         f"{split} {sp['s']:.3f} s = rig renders with their metrics "
-        f"{sp['stats']['render_s']:.3f} s ({n_rigs} replays) + flow renders "
-        f"{sp['stats']['flow_s']:.3f} s ({2 * n_cams} replays) + PNG/video "
+        f"{sp['stats']['render_s']:.3f} s ({n // CLIP_CAMS} replays) + flow "
+        f"renders {sp['stats']['flow_s']:.3f} s "
+        f"({sp['stats']['replays'] - n // CLIP_CAMS} replays) + PNG/video "
         f"writing {vs:.3f} s, {sp['stats']['replays'] / (sp['stats']['render_s'] + sp['stats']['flow_s']):.2f} "
         f"replays/s; captures (warm-up ms, capture ms) " + ", ".join(
             f"{w} ({a:.1f}, {c:.1f})" for w, a, c, _ in sp["stats"]["captures"])
-        for split, sp, vs in zip(SWEEP_SPLITS, splits,
-                                 rec["video_s"][-len(SWEEP_SPLITS):]))
+        for (split, n), sp, vs in zip(splits.items(), recs,
+                                      rec["video_s"][-len(splits):]))
         + f"; peak device memory over the sweep {ev['peak'] / 2**30:.2f} GiB; "
         f"rect-clamped at most " + str(max(
-            sp["stats"]["overflow"]["overflow_rect"] for sp in splits))
+            sp["stats"]["overflow"]["overflow_rect"] for sp in recs))
         + f" a render; {ev['launches'][0]} forward / {ev['launches'][1]} "
         f"backward compositor launches ({card})", flush=True)
     return per_view, ev["launches"]
@@ -1917,6 +1956,398 @@ def tools_phase(torch, out, rec7, card):
     return launches
 
 
+def merged_preset(name, path, model, opt):
+    """``arguments/<name>`` with its ModelParams and OptimizationParams
+    values replaced by ``model`` and ``opt`` (the window, the stride,
+    the cadence), written to ``path``; every other key kept."""
+    preset = {}
+    with open(os.path.join(REPO, "arguments", name)) as f:
+        exec(f.read(), preset)
+    groups = {"ModelParams": model, "OptimizationParams": opt}
+    with open(path, "w") as f:
+        for group in ("ModelParams", "OptimizationParams", "PipelineParams",
+                      "ModelHiddenParams", "RasterConfig"):
+            if group in preset or group in groups:
+                values = dict(preset.get(group, {}), **groups.get(group, {}))
+                f.write(f"{group} = {values!r}\n")
+    return path
+
+
+def run_group(cmd, env, timeout):
+    """``cmd`` from the repository root in a process group of its own,
+    its output captured; the whole group is killed if it outlasts
+    ``timeout`` (seconds), the processes it started with it."""
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def scene_run(torch, argv, tag, card, splits=None, dx=True):
+    """One run of phase 14 through ``train_cli.main`` in this process
+    under ``cli_hooks``: phase 7's training gates (finite losses, no
+    overflow, the logged cadence, densifies that clone or split and
+    prune, one forward and one backward launch a step and a capture's
+    warm-up, one capture a stage, the final checkpoint and PLY, memory
+    after a fine step), then with ``splits`` the final sweep's
+    (``check_sweep``).  Prints it/s per stage, reader s, sweep s per
+    split and peak memory, and what was allocated before the run.
+    Returns (state, record, printed output, compositor launches of
+    training and sweep)."""
+    from s3gaussian_tpu_torch import train_cli
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.train import checkpoints as ckpt
+    from s3gaussian_tpu_torch.train import graphs
+    from s3gaussian_tpu_torch.utils.ply import read_ply
+
+    out = argv[argv.index("--model_path") + 1]
+    rec = new_record()
+    # the previous run's record and state can sit in reference cycles
+    # (cli_hooks makes a class a run), and cuBLAS keeps a workspace for
+    # every stream it ran on, each capture running on a side stream of
+    # its own: both freed here, so that the run's peak is its own
+    gc.collect()
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with cli_hooks(torch, rec), contextlib.redirect_stdout(buf):
+            tk.launches = tk.bwd_launches = 0
+            state = train_cli.main(argv)
+            torch.cuda.synchronize()
+    except BaseException:
+        print(buf.getvalue(), end="", flush=True)
+        raise
+    run_s = time.time() - t0
+    printed = buf.getvalue()
+    graphs.release()
+    launches = rec["train_launches"] or (tk.launches, tk.bwd_launches)
+    peak = (rec["train_peak"] if rec["train_peak"] is not None
+            else torch.cuda.max_memory_allocated())
+
+    log = read_logger(os.path.join(out, "logger.json"))
+    steps = [l for l in log if "Loss" in l]
+    for l in steps:
+        where = f"{tag} {l['stage']} step {l['step']}"
+        check(math.isfinite(l["Loss"]), f"{where}: Loss {l['Loss']}")
+        check(l["ovf_vis"] == l["ovf_pairs"] == 0,
+              f"{where}: overflow visible {l['ovf_vis']} pairs "
+              f"{l['ovf_pairs']}")
+        check(l["nan_skips"] == 0, f"{where}: nan_skips {l['nan_skips']}")
+    want_steps = [(stage, i) for stage, n in (("coarse", SCENE_COARSE),
+                                              ("fine", SCENE_FINE))
+                  for i in [1] + list(range(CLI_LOG_EVERY, n + 1,
+                                            CLI_LOG_EVERY))]
+    check([(l["stage"], l["step"]) for l in steps] == want_steps,
+          f"{tag}: logged steps {[(l['stage'], l['step']) for l in steps]}")
+    dens = [l for l in log if "densify" in l]
+    check(any(d["densify"]["n_cloned"] + d["densify"]["n_split"] > 0
+              for d in dens), f"{tag}: no densify cloned or split")
+    check(any(d["densify"]["n_pruned"] > 0 for d in dens),
+          f"{tag}: nothing pruned")
+    check(all(d["densify"]["overflow"] == 0 for d in dens),
+          f"{tag}: a densify ran out of free slots")
+    n_steps = SCENE_COARSE + SCENE_FINE
+    dispatch = dispatches(rec, 1, tag)
+    check(launches == (n_steps + len(rec["captures"]),) * 2,
+          f"{tag}: {launches} forward/backward launches for {n_steps} train "
+          f"steps and {len(rec['captures'])} captures' warm-up steps")
+    check(sorted(d for d in os.listdir(out) if d.startswith("chkpnt_"))
+          == [f"chkpnt_fine_{SCENE_FINE}"], f"{tag}: checkpoints left")
+    flat = torch.load(os.path.join(out, f"chkpnt_fine_{SCENE_FINE}",
+                                   ckpt.STATE_FILE), weights_only=True)
+    n_ply = len(read_ply(os.path.join(out, "point_cloud",
+                                      f"iteration_{SCENE_FINE}",
+                                      "point_cloud.ply"))["x"])
+    check(int(flat["pool.alive"].sum()) == n_ply == int(state.pool.n_alive),
+          f"{tag}: alive in the checkpoint {int(flat['pool.alive'].sum())}, "
+          f"PLY {n_ply}, state {int(state.pool.n_alive)}")
+    fine_alloc = [a for s, a in rec["alloc"] if s == "fine"]
+    half = len(fine_alloc) // 2
+    check(max(fine_alloc[half:]) <= (1 + ALLOC_GROWTH) * max(fine_alloc[:half]),
+          f"{tag}: device memory after a fine step grew from "
+          f"{max(fine_alloc[:half])} to {max(fine_alloc[half:])} bytes")
+    rates = {s: [l for l in steps if l["stage"] == s][-1]["it_per_s"]
+             for s in ("coarse", "fine")}
+    sc = rec["scene"]
+    print(f"{tag}: {len(sc.get_train_cameras())} train / "
+          f"{len(sc.get_test_cameras())} test cameras, reader "
+          f"{rec['reader_s']:.2f} s; it/s coarse {rates['coarse']} fine "
+          f"{rates['fine']}; training peak {peak / 2 ** 30:.2f} GiB, "
+          f"{held / 2 ** 30:.2f} GiB of it held before the run "
+          f"({left / 2 ** 30:.2f} GiB before cuBLAS's workspaces were "
+          f"freed, after a garbage collection); "
+          f"densify " + " ".join(
+              f"{d['stage'][0]}{d['step']}:+{d['densify']['n_cloned']}"
+              f"+{d['densify']['n_split']}-{d['densify']['n_pruned']}"
+              f"->{d['densify']['n_alive']}" for d in dens)
+          + f"; fine psnr {steps[-1]['psnr']} dB; {launches[0]} forward / "
+          f"{launches[1]} backward launches; {dispatch}; run {run_s:.2f} s "
+          f"({card})", flush=True)
+    sweep = (0, 0)
+    if splits is not None:
+        check(len(rec["evals"]) == 1, f"{tag}: {len(rec['evals'])} sweeps")
+        _, sweep = check_sweep(torch, rec, out, int(state.step), card, tag,
+                               splits=splits, dx=dx)
+    else:
+        check(not rec["evals"], f"{tag}: {len(rec['evals'])} sweeps")
+    return state, rec, printed, (launches[0] + sweep[0],
+                                 launches[1] + sweep[1])
+
+
+def scene_matrix_phase(torch, dev, card):
+    """Phase 14: the reference's scene matrix (``scripts/run_scenes.py``:
+    phase-1 reconstruction with NVS, then the phase-2 warm start) on a
+    longer clip of phase 7's street, ``tools/mini_clip.py::write_clip`` at
+    640x960 and phase 7's density, 21 frames x 3 cameras, the default
+    model.  Cuts, depth and scale only: 21 frames where the reference's
+    record has 100; windows 0-10 and 11-20 where it uses 0-49 and 50-99;
+    phase 9's cadence (40 coarse + 80 fine steps, density control from 20
+    every 20, opacity reset every 60), carried in the merged files'
+    OptimizationParams where a preset sets its own; ``stage2_nvs``'s
+    stride 10 -> 9, since 10 holds nothing out of a 10-frame window (9
+    holds out frame 20); 14c runs no final sweep (its path is 14a's).
+
+    (a) ``arguments/nvs.py`` on frames 0-10 (``--end_time 10``, frame 10's
+    cameras held out) in this process, phase 7's gates and the sweep's
+    test (3 views), train and full splits, the model path
+    ``<stage1 root>/<clip>``; (b) ``arguments/static_nvs.py`` likewise:
+    the captured step and the sweep without a position head, no
+    ``heads.pos`` in the checkpoint, no dx in the logger, no flow graph,
+    frames or split PLY; (c) ``stage2.py`` merged (window 11-20,
+    ``original_start_time`` 0) with ``--prior_checkpoint`` 14a's final
+    checkpoint: the field right after the transplant equals the prior's
+    bit for bit, cfg_args hold the window, the first train camera's time
+    is frame 11's over [0, 20]; (d) ``stage2_nvs.py`` merged through
+    ``python -m s3gaussian_tpu_torch.tools.run_scenes`` in a process of
+    its own, first ``--dry_run`` (the command names 14a's checkpoint),
+    then for real (``run_summary.json`` ok, the transplant printed, a
+    test metrics JSON), then ``scripts/cal.py`` over its output.
+    Returns the compositor launches of (a)-(c) by run."""
+    from s3gaussian_tpu_torch.config import RasterConfig
+    from s3gaussian_tpu_torch.tools.mini_clip import gt_scene, write_clip
+    from s3gaussian_tpu_torch.train import checkpoints as ckpt
+    from s3gaussian_tpu_torch.train import graphs
+
+    t14 = time.time()
+    root = os.path.join(REPO, "build", "chip_smoke_scenes")
+    shutil.rmtree(root, ignore_errors=True)
+    clip = os.path.join(root, "clips", SCENE_CLIP)
+    stage1, stage2 = os.path.join(root, "stage1"), os.path.join(root,
+                                                                "stage2")
+    t0 = time.time()
+    scene = gt_scene(np.random.default_rng(CLIP_SEED), density=CLIP_DENSITY)
+    overflow, n_lidar = write_clip(
+        clip, scene, SCENE_FRAMES, H, W, np.random.default_rng(CLIP_SEED + 1),
+        lidar_cap=CLIP_LIDAR, cfg=RasterConfig(
+            max_visible=len(scene["pts"]), rect_w=6, rect_h=6,
+            pair_budget=1 << 23), device=dev)
+    check(overflow["overflow_visible"] == overflow["overflow_pairs"] == 0,
+          f"14: ground-truth renders overflowed their budgets: {overflow}")
+    del scene
+    print(f"14: clip {SCENE_CLIP}: {SCENE_FRAMES} frames x {CLIP_CAMS} "
+          f"cameras {H}x{W} (phase 7's street, density {CLIP_DENSITY}), "
+          f"{n_lidar} LiDAR points, written in {time.time() - t0:.2f} s; "
+          f"cut from the reference's record: 21 frames of 100, windows 0-10 "
+          f"and 11-20 for 0-49 and 50-99, {SCENE_COARSE} coarse + "
+          f"{SCENE_FINE} fine steps (density control from "
+          f"{CLI_DENSIFY_FROM} every {CLI_DENSIFY_EVERY}, opacity reset "
+          f"every {CLI_RESET}), stage2_nvs stride 10 -> {SCENE_NVS_STRIDE}",
+          flush=True)
+
+    cadence = ["--seed", str(CLIP_SEED),
+               "--densify_from_iter", str(CLI_DENSIFY_FROM),
+               "--densification_interval", str(CLI_DENSIFY_EVERY),
+               "--opacity_reset_interval", str(CLI_RESET),
+               "--checkpoint_iterations", str(CLI_CKPT),
+               "--pair_budget", "4194304"]           # bench.py's budget
+    phase1 = ["--coarse_iterations", str(SCENE_COARSE), "--iterations",
+              str(SCENE_FINE), "--end_time", str(SCENE_STAGE1_END)]
+    n1 = (SCENE_STAGE1_END + 1) * CLIP_CAMS
+    splits1 = {"test": CLIP_CAMS, "train": n1 - CLIP_CAMS, "full": n1}
+    launches = {}
+
+    # (a) nvs on frames 0-10
+    out_a = os.path.join(stage1, SCENE_CLIP)
+    argv = (["-s", clip, "--model_path", out_a] + cadence + phase1
+            + ["--configs", os.path.join(REPO, "arguments", "nvs.py")])
+    print(f"14a: train_cli.main({' '.join(argv[4:])})", flush=True)
+    state, rec, _, launches["14a nvs"] = scene_run(
+        torch, argv, "14a nvs", card, splits=splits1)
+    check([int(c.frame_idx) for c in rec["eval_args"][0][1]]
+          == [SCENE_STAGE1_END] * CLIP_CAMS,
+          "14a: the test split is not frame 10's cameras")
+    del state, rec
+    torch.cuda.empty_cache()
+
+    # (b) static_nvs on frames 0-10: no position head
+    out_b = os.path.join(root, "static_nvs", SCENE_CLIP)
+    argv = (["-s", clip, "--model_path", out_b] + cadence + phase1
+            + ["--configs", os.path.join(REPO, "arguments",
+                                         "static_nvs.py")])
+    print(f"14b: train_cli.main({' '.join(argv[4:])})", flush=True)
+    state, rec, _, launches["14b static_nvs"] = scene_run(
+        torch, argv, "14b static_nvs", card, splits=splits1, dx=False)
+    check("pos" not in state.deform.heads, "14b: the field has a pos head")
+    flat = torch.load(os.path.join(out_b, f"chkpnt_fine_{SCENE_FINE}",
+                                   ckpt.STATE_FILE), weights_only=True)
+    check(not any(k.startswith("deform.heads.pos.") for k in flat),
+          "14b: heads.pos in the checkpoint")
+    check(not any("dx" in k for line in read_logger(
+        os.path.join(out_b, "logger.json")) for k in line),
+        "14b: a dx entry in the logger")
+    written = [f for d in os.listdir(os.path.join(out_b, "eval"))
+               if d.endswith(f"_set_{SCENE_FINE}")
+               for f in os.listdir(os.path.join(out_b, "eval", d))]
+    check(bool(written) and not any("flows" in f for f in written),
+          f"14b: flow frames written: {sorted(written)[:4]}")
+    check(not os.path.exists(os.path.join(out_b, "eval", "pcd")),
+          "14b: a split PLY written")
+    del state, rec, flat
+    torch.cuda.empty_cache()
+
+    # (c) stage2 merged, in this process, from 14a's checkpoint
+    prior = os.path.join(out_a, f"chkpnt_fine_{SCENE_FINE}")
+    window = {"start_time": SCENE_WINDOW[0], "end_time": SCENE_WINDOW[1],
+              "original_start_time": 0}
+    opt = {"coarse_iterations": SCENE_COARSE, "iterations": SCENE_FINE}
+    merged2 = merged_preset("stage2.py", os.path.join(root, "stage2.py"),
+                            window, opt)
+    out_c = os.path.join(root, "stage2_inproc", SCENE_CLIP)
+    argv = (["-s", clip, "--model_path", out_c] + cadence
+            + ["--configs", merged2, "--prior_checkpoint", prior,
+               "--skip_final_eval"])
+    moved = []
+    orig = ckpt.transplant_deformation
+
+    def transplant(path, st):
+        st = orig(path, st)
+        got = st.deform.state_dict()
+        want = {k[len("deform."):]: v for k, v in torch.load(
+            os.path.join(prior, ckpt.STATE_FILE), map_location=dev,
+            weights_only=True).items() if k.startswith("deform.")}
+        moved.append(got.keys() == want.keys() and all(
+            torch.equal(got[k], v) for k, v in want.items()))
+        return st
+
+    print(f"14c: train_cli.main({' '.join(argv[4:])}); {merged2}: "
+          f"{open(merged2).read().strip()}", flush=True)
+    ckpt.transplant_deformation = transplant
+    try:
+        state, rec, printed, launches["14c stage2"] = scene_run(
+            torch, argv, "14c stage2", card)
+    finally:
+        ckpt.transplant_deformation = orig
+    check(moved == [True], f"14c: the field after the transplant is not the "
+          f"prior's bit for bit ({moved})")
+    check(f"transplanting deformation from {prior}" in printed,
+          "14c: no transplant printed")
+    with open(os.path.join(out_c, "cfg_args")) as f:
+        cfg_args = ast.literal_eval(f.read())
+    check(all(cfg_args[k] == v for k, v in window.items())
+          and cfg_args["prior_checkpoint"] == prior,
+          f"14c: cfg_args window {[cfg_args[k] for k in window]}")
+    cam = rec["scene"].get_train_cameras()[0]
+    frame = SCENE_WINDOW[0] + int(cam.frame_idx)
+    t_want = frame / max(SCENE_WINDOW[1] + 1 - 0 - 1, 1)
+    check(int(cam.frame_idx) == 0 and abs(float(cam.time) - t_want) <= 1e-6,
+          f"14c: first train camera at frame {frame}, time {float(cam.time)}"
+          f", not {t_want}")
+    print(f"14c: the field equals 14a's prior bit for bit right after the "
+          f"transplant ({len(moved)} transplant); first train camera frame "
+          f"{frame} at time {float(cam.time):.6f} = {frame}/"
+          f"{SCENE_WINDOW[1]}", flush=True)
+    del state, rec, cam
+    graphs.release()
+    torch.cuda.empty_cache()
+
+    # (d) stage2_nvs through the multi-scene driver, a process of its own
+    merged3 = merged_preset(
+        "stage2_nvs.py", os.path.join(root, "stage2_nvs.py"),
+        dict(window, stride=SCENE_NVS_STRIDE), opt)
+    cmd = [sys.executable, "-m", "s3gaussian_tpu_torch.tools.run_scenes",
+           "--data_root", os.path.dirname(clip), "--scenes", SCENE_CLIP,
+           "--prior_root", stage1, "--configs", merged3, "--output", stage2]
+    env = dict(os.environ, S3G_LOG_EVERY=str(CLI_LOG_EVERY),
+               S3G_LPIPS_WEIGHTS=LPIPS_FIXTURE)
+    dry = run_group(cmd[:3] + ["--dry_run"] + cmd[3:] + ["--"] + cadence,
+                    env, 120)
+    check(dry.returncode == 0 and f"--prior_checkpoint {prior}" in dry.stdout,
+          f"14d: --dry_run rc {dry.returncode}: {dry.stdout[-2000:]}"
+          f"{dry.stderr[-2000:]}")
+    line = [l for l in dry.stdout.splitlines() if l.startswith("[")][0]
+    print(f"14d: {' '.join(cmd[2:])} -- {' '.join(cadence)}; --dry_run: "
+          f"{line}", flush=True)
+    t0 = time.time()
+    run = run_group(cmd + ["--"] + cadence, env, SCENE_TIMEOUT_S)
+    run_s = time.time() - t0
+    with open(os.path.join(root, "run_scenes.log"), "w") as f:
+        f.write(run.stdout + run.stderr)
+    check(run.returncode == 0, f"14d: run_scenes exited {run.returncode} "
+          f"(killed at {SCENE_TIMEOUT_S} s): "
+          f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
+    with open(os.path.join(stage2, "run_summary.json")) as f:
+        summary = json.load(f)
+    check([(s["scene"], s["status"]) for s in summary] == [(SCENE_CLIP, "ok")],
+          f"14d: run_summary {summary}")
+    check(f"transplanting deformation from {prior}" in run.stdout,
+          "14d: no transplant printed")
+    out_d = os.path.join(stage2, SCENE_CLIP)
+    log = read_logger(os.path.join(out_d, "logger.json"))
+    steps = [l for l in log if "Loss" in l]
+    check(all(math.isfinite(l["Loss"]) and l["ovf_vis"] == l["ovf_pairs"]
+              == l["nan_skips"] == 0 for l in steps)
+          and steps[-1]["stage"] == "fine"
+          and steps[-1]["step"] == SCENE_FINE,
+          f"14d: logged steps {[(l['stage'], l['step']) for l in steps]}")
+    mdir = os.path.join(out_d, "eval", "metrics")
+    found = {}
+    for name in sorted(os.listdir(mdir)):
+        step, _, split, _ = name.split("_")
+        if step == str(SCENE_FINE):
+            with open(os.path.join(mdir, name)) as f:
+                found[split] = json.load(f)
+    check(set(found) == {"test", "train", "full"} and all(
+        math.isfinite(m["psnr"]) and math.isfinite(m["ssim"])
+        for m in found.values()), f"14d: sweep metrics {found}")
+    test_pngs = os.listdir(os.path.join(out_d, "eval",
+                                        f"test_set_{SCENE_FINE}"))
+    check(test_pngs and all(f.endswith("_000.png") for f in test_pngs),
+          f"14d: test frames {sorted(test_pngs)}")
+    cal = run_group([sys.executable, os.path.join(REPO, "scripts", "cal.py"),
+                     "--root", stage2, "--split", "test"], None, 120)
+    lines = cal.stdout.splitlines()
+    check(cal.returncode == 0 and "--- average over 1 scenes (test) ---"
+          in lines, f"14d: cal.py rc {cal.returncode}: {cal.stdout}"
+          f"{cal.stderr[-2000:]}")
+    avg = ast.literal_eval(lines[lines.index(
+        "--- average over 1 scenes (test) ---") + 1])
+    check(math.isfinite(avg["psnr"]), f"14d: cal.py average {avg}")
+    rates = {s: [l for l in steps if l["stage"] == s][-1]["it_per_s"]
+             for s in ("coarse", "fine")}
+    print(f"14d: run_scenes in {run_s:.2f} s ({SCENE_COARSE} coarse + "
+          f"{SCENE_FINE} fine steps and the final sweep in a process of its "
+          f"own): it/s coarse {rates['coarse']} fine {rates['fine']}; test "
+          f"psnr {found['test']['psnr']:.3f} ssim {found['test']['ssim']:.4f}"
+          f" over {CLIP_CAMS} views (frame {SCENE_WINDOW[1]}), train psnr "
+          f"{found['train']['psnr']:.3f}; reader s, sweep s per split and "
+          f"peak memory: not measured (run_scenes' own process); cal.py: "
+          f"{lines[-1]} ({card})", flush=True)
+    print(f"14: scene matrix in {time.time() - t14:.1f} s; compositor "
+          f"launches " + "; ".join(f"{k} {v[0]} / {v[1]}"
+                                   for k, v in launches.items()), flush=True)
+    return launches
+
+
 # per workload of the bench: (timed) launches of one step, forward and
 # backward: one a camera
 BENCH_LINES = {"detail": 1, "detail_multicam3": 3, "detail_waymo_scale": 1,
@@ -2763,8 +3194,8 @@ T_START = time.time()
 
 def main(only=None) -> int:
     """The smoke run; ``only="13"`` runs the build and phase 13 alone (on
-    a fresh headline state with mid-training moments) and prints no
-    result line."""
+    a fresh headline state with mid-training moments), ``only="14"`` the
+    build and phase 14 alone; neither prints a result line."""
     import torch
 
     from s3gaussian_tpu_torch.bench import card_line
@@ -2804,6 +3235,10 @@ def main(only=None) -> int:
     print(f"build: {build_s:.2f} s for {len(logs)} kernels in parallel",
           flush=True)
 
+    if only == "14":
+        scene_matrix_phase(torch, dev, card)
+        print("chip_smoke: phase 14 alone, not the smoke run", flush=True)
+        return 0
     # the headline workload of bench.py
     t0 = time.time()
     su = headline(torch, dev)
@@ -3203,6 +3638,11 @@ def main(only=None) -> int:
     del rec7
     torch.cuda.empty_cache()
 
+    # 14. the scene matrix: nvs, static_nvs and stage2 through the CLI in
+    # this process, stage2_nvs through the multi-scene driver
+    scenes14 = scene_matrix_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+
     # 11. the bench, in a process of its own
     bench11, _ = bench_phase(card)
 
@@ -3222,7 +3662,8 @@ def main(only=None) -> int:
             "9 waymo_perf training": train9, "9 waymo_perf sweep": sweep9,
             "10 offline tools": tools10, "11 bench": bench11,
             "12a NCCL world 1": dp12a, "12b two gloo ranks": dp12b,
-            "12c CLI two gloo ranks": dp12c, "13 graph vs eager": graph13}
+            "12c CLI two gloo ranks": dp12c, "13 graph vs eager": graph13,
+            **scenes14}
     main_launches = tuple(sum(v[i] for v in path.values()) for i in (0, 1))
     print("compositor launches, forward / backward: " + "; ".join(
         f"{k} {v[0]} / {v[1]}" for k, v in path.items())
@@ -3234,6 +3675,8 @@ def main(only=None) -> int:
     check(all(v[0] > 0 and v[1] > 0 for v in (dp12a, dp12b, dp12c)),
           "a data-parallel phase launched no kernel")
     check(graph13[0] > 0 and graph13[1] > 0, "phase 13 launched no kernel")
+    check(all(v[0] > 0 and v[1] > 0 for v in scenes14.values()),
+          "a run of phase 14 launched no kernel")
     # this process's segment sums over the path (the bench's and the rank
     # processes' are not counted here)
     seg_main = tk.seg_launches - seg_compare
@@ -3286,8 +3729,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--dp-rank"]:
             code = dp_rank_main(*sys.argv[2:])
-        elif sys.argv[1:] == ["--phase", "13"]:
-            code = main(only="13")
+        elif sys.argv[1:] in (["--phase", "13"], ["--phase", "14"]):
+            code = main(only=sys.argv[2])
         else:
             code = main()
     except SmokeFailure as e:

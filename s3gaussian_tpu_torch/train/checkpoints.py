@@ -152,9 +152,15 @@ def restore_latest(model_path: str, template: TrainState, who: str
 def transplant_deformation(path: str, state: TrainState) -> TrainState:
     """--prior_checkpoint: only the deformation field (hexplane and MLPs)
     of the checkpoint at ``path`` moves into ``state``'s field; the pool,
-    whatever its capacity, and everything else stay."""
+    whatever its capacity, and everything else stay.  As the JAX package
+    restores the prior against the fresh field's tree, the two fields'
+    heads may differ (``no_dx`` on one side): a parameter the prior
+    lacks keeps the fresh field's value, one the field lacks is
+    dropped."""
     flat = _load(path, state.pool.xyz.device)
-    state.deform.load_state_dict(_deform_tensors(flat))
+    own = state.deform.state_dict()
+    own.update((k, v) for k, v in _deform_tensors(flat).items() if k in own)
+    state.deform.load_state_dict(own)
     return state
 
 

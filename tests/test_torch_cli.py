@@ -43,17 +43,11 @@ import numpy as np
 import pytest
 import torch
 
-from s3gaussian_tpu.config import ModelHiddenParams as JHP
-from s3gaussian_tpu.config import apply_config_file as j_apply_config_file
-from s3gaussian_tpu.config import ModelParams as JMP
-from s3gaussian_tpu.config import OptimizationParams as JOpt
-from s3gaussian_tpu.config import PipelineParams as JPipe
-from s3gaussian_tpu.models.deformation import init_deformation
 from s3gaussian_tpu_torch import train_cli
-from s3gaussian_tpu_torch.config import ModelHiddenParams as THP
 from s3gaussian_tpu_torch.train import trainer as ttr
-from s3gaussian_tpu_torch.weights import deformation_from_numpy
 
+import torch_cli_pairs
+from torch_cli_pairs import read_log
 from waymo_fixture import make_fixture
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -81,22 +75,8 @@ ARGV = ["--num_pts", "500",
 JAX_ARGV = ARGV + ["--max_pairs_per_tile", "512"]
 
 
-def read_log(out):
-    with open(os.path.join(out, "logger.json")) as f:
-        return [json.loads(line) for line in f if line.strip()]
-
-
-def jax_hp():
-    hp = JHP()
-    j_apply_config_file(TINY, JMP(), JPipe(), JOpt(), hp)
-    return hp
-
-
-def same_field(hyper, seed, device):
-    """The port's make_deformation giving the JAX CLI's initial field."""
-    field = jax.tree_util.tree_map(
-        np.asarray, init_deformation(jax.random.PRNGKey(seed), jax_hp()))
-    return deformation_from_numpy(field, hyper, device)
+# the port's make_deformation giving the JAX CLI's initial field
+same_field = torch_cli_pairs.same_field(TINY)
 
 
 @pytest.fixture(scope="module")

@@ -33,7 +33,7 @@ def test_every_port_module_imports_without_jax():
     for m in ("data_parallel", "multihost"):
         assert f"s3gaussian_tpu_torch.parallel.{m}" in mods
     for m in ("mini_clip", "metrics", "eval_per_view", "eval_flow_epe",
-              "trained"):
+              "trained", "run_scenes"):
         assert f"s3gaussian_tpu_torch.tools.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"       # any `import jax` raises
