@@ -315,6 +315,14 @@ PERF_COARSE, PERF_FINE = 40, 80
 SCENE_CLIP, SCENE_FRAMES, SCENE_STAGE1_END = "street", 21, 10
 SCENE_WINDOW, SCENE_NVS_STRIDE, SCENE_TIMEOUT_S = (11, 20), 9, 600
 SCENE_COARSE, SCENE_FINE = PERF_COARSE, PERF_FINE
+# phase 15: checkpoint interchange.  15a: phase 7's final checkpoint
+# exported and imported again, --eval_only on the import against phase
+# 8's, a block of fine steps resumed from each path; 15b: the JAX
+# package's scene of tests/fixtures/jax_exchange_tiny.npz rendered on the
+# card against JAX's render, then a block of fine steps on it
+EXCHANGE_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                                "jax_exchange_tiny.npz")
+RESUME_STEPS, FIXTURE_STEPS = 10, 10
 # phase 12: data parallelism on the one card.  12b: two gloo ranks at the
 # headline, rank r's camera yawed DP_YAWS[r] (a rig of YAWS_DEG at
 # DP_RIG_TIMES[r] for the rig steps); 12c: the CLI on phase 7's clip, depth
@@ -1956,6 +1964,302 @@ def tools_phase(torch, out, rec7, card):
     return launches
 
 
+def with_flag(argv, flag, value):
+    """``argv`` with ``flag`` set to ``value`` (replaced where present)."""
+    argv = list(argv)
+    if flag in argv:
+        argv[argv.index(flag) + 1] = value
+        return argv
+    return argv + [flag, value]
+
+
+def split_frames(out, step):
+    """{file: uint8 array} of the PNG frames a sweep at ``step`` wrote
+    under ``out``."""
+    from s3gaussian_tpu_torch.data.images import decode_png
+    frames = {}
+    for split in SWEEP_SPLITS:
+        d = os.path.join(out, "eval", f"{split}_set_{step}")
+        for name in sorted(os.listdir(d)):
+            if name.endswith(".png"):
+                with open(os.path.join(d, name), "rb") as f:
+                    frames[f"{split}/{name}"] = decode_png(f.read())
+    return frames
+
+
+def exchange_phase(torch, dev, argv7, out7, rec8, card):
+    """Phase 15: checkpoint interchange on the card.  15a: phase 7's final
+    checkpoint exported to an exchange file and imported under a new
+    model path (every tensor bit for bit), ``--eval_only`` on the import
+    (phase 8's metrics within METRIC_ATOL, its frames within one uint8
+    step), a block of RESUME_STEPS fine steps resumed through
+    ``--start_checkpoint`` from each path (the two states bit for bit).
+    15b: the JAX package's scene of the committed fixture imported, its
+    camera rendered through the CUDA compositor against JAX's float32
+    render (phase 6's gate: RGBD_ATOL/RTOL, at most MAX_FLIPPED_PIXELS
+    pixels beyond it, each behind a pair on a threshold between the
+    card's stream and the CPU's), then a block of FIXTURE_STEPS fine steps
+    on it (finite losses, every pool group moved).  Returns
+    {run: compositor launches}."""
+    from types import SimpleNamespace
+
+    from s3gaussian_tpu_torch import config as tcfg
+    from s3gaussian_tpu_torch import train_cli
+    from s3gaussian_tpu_torch.data.cameras import Camera
+    from s3gaussian_tpu_torch.models.deformation import DeformationField
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    from s3gaussian_tpu_torch.render.renderer import render
+    from s3gaussian_tpu_torch.tools import exchange
+    from s3gaussian_tpu_torch.train import checkpoints as ckpt
+    from s3gaussian_tpu_torch.train import graphs
+    from s3gaussian_tpu_torch.train.trainer import train_steps_scan
+
+    t15 = time.time()
+    root = os.path.join(REPO, "build", "chip_smoke_exchange")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    launches = {}
+    buf = io.StringIO()
+
+    # 15a. across and back
+    src = os.path.join(out7, f"chkpnt_fine_{CLI_FINE}")
+    npz, imported = os.path.join(root, "phase7.npz"), os.path.join(root,
+                                                                   "imported")
+    tk.launches = tk.bwd_launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        exchange.export_run(out7, npz, src)
+    export_s = time.time() - t0
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        state = exchange.import_run(npz, imported)
+    torch.cuda.synchronize()
+    import_s = time.time() - t0
+    check((tk.launches, tk.bwd_launches) == (0, 0),
+          "15a: the export or import launched a kernel")
+    alive = int(state.pool.n_alive)
+    del state
+    want = torch.load(os.path.join(src, ckpt.STATE_FILE), map_location="cpu",
+                      weights_only=True)
+    dst = os.path.join(imported, f"chkpnt_fine_{CLI_FINE}")
+    got = torch.load(os.path.join(dst, ckpt.STATE_FILE), map_location="cpu",
+                     weights_only=True)
+    check(got.keys() == want.keys(), f"15a: the imported state's keys "
+          f"differ: {sorted(set(got) ^ set(want))[:4]}")
+    for k, v in want.items():
+        check(got[k].dtype == v.dtype and torch.equal(got[k], v),
+              f"15a: {k} of the imported state differs from phase 7's")
+    check(ckpt.read_stage(dst) == ckpt.read_stage(src),
+          f"15a: STAGE {ckpt.read_stage(dst)}")
+    n_bytes = sum(v.numel() * v.element_size() for v in want.values())
+    print(f"15a: phase 7's chkpnt_fine_{CLI_FINE} ({len(want)} tensors, "
+          f"{n_bytes} bytes, {alive} alive of {want['pool.xyz'].shape[0]}) "
+          f"-> exchange file {os.path.getsize(npz)} bytes in {export_s:.2f} s "
+          f"-> imported in {import_s:.2f} s (built and saved on the CPU, "
+          f"then restored on the card); every tensor bit for bit ({card})",
+          flush=True)
+    del want, got
+
+    # --eval_only on the import against phase 8's
+    argv_i = with_flag(argv7, "--model_path", imported)
+    rec = new_record()
+    with cli_hooks(torch, rec):
+        tk.launches = tk.bwd_launches = 0
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            state = train_cli.main(argv_i + ["--eval_only"])
+        torch.cuda.synchronize()
+        eval_s = time.time() - t0
+    step = int(state.step)
+    del state
+    per_view, launches["15a --eval_only"] = check_sweep(
+        torch, rec, imported, step, card, "15a eval_only")
+    want_pv = {sp: r["per_view"] for sp, r in zip(SWEEP_SPLITS,
+                                                  rec8["splits"][-2:])}
+    worst = 0.0
+    for split, want_split in want_pv.items():
+        m_got = rec["evals"][-1]["results"][split]
+        m_want = rec8["evals"][-1]["results"][split]
+        check(m_got.keys() == m_want.keys(), f"15a {split}: metric keys")
+        pairs = [(m_got[k], m_want[k]) for k in m_want]
+        for k, w in want_split.items():
+            check(len(per_view[split][k]) == len(w), f"15a {split} {k}")
+            pairs += list(zip(per_view[split][k], w))
+        for g, w in pairs:
+            check((g is None) == (w is None)
+                  and (g is None or abs(g - w) <= METRIC_ATOL),
+                  f"15a {split}: --eval_only on the import gave {g}, phase "
+                  f"8 {w}")
+            if g is not None:
+                worst = max(worst, abs(g - w))
+    frames_i = split_frames(imported, step)
+    frames_8 = split_frames(out7, step)
+    check(frames_i.keys() == frames_8.keys() and frames_i,
+          f"15a: frames {len(frames_i)} against phase 8's {len(frames_8)}")
+    n_diff, frame_worst = 0, 0
+    for k, a in frames_8.items():
+        d = np.abs(frames_i[k].astype(np.int16) - a.astype(np.int16))
+        n_diff += int((d > 0).sum())
+        frame_worst = max(frame_worst, int(d.max()))
+    check(frame_worst <= 1, f"15a: a frame differs by {frame_worst} uint8 "
+          f"steps from phase 8's")
+    print(f"15a: --eval_only on the import in {eval_s:.2f} s: metrics and "
+          f"per-view values against phase 8's, worst difference {worst:.3e} "
+          f"(gate {METRIC_ATOL}); {len(frames_i)} frames, {n_diff} uint8 "
+          f"values differ, by at most {frame_worst} (gate 1) ({card})",
+          flush=True)
+
+    # a block of fine steps resumed from each path
+    resumed = {}
+    for tag, path in (("phase 7", src), ("import", dst)):
+        model = os.path.join(root, f"resumed_{len(resumed)}")
+        argv_r = with_flag(with_flag(argv7, "--model_path", model),
+                           "--iterations", str(CLI_FINE + RESUME_STEPS))
+        rec = new_record()
+        with cli_hooks(torch, rec):
+            tk.launches = tk.bwd_launches = 0
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                train_cli.main(argv_r + ["--start_checkpoint", path,
+                                         "--skip_final_eval"])
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+        graphs.release()
+        key = f"15a resumed from {tag}"
+        launches[key] = (tk.launches, tk.bwd_launches)
+        check(launches[key] == (RESUME_STEPS + len(rec["captures"]),) * 2
+              and len(rec["captures"]) == 1,
+              f"{key}: {launches[key]} launches, {len(rec['captures'])} "
+              f"captures")
+        resumed[tag] = (torch.load(os.path.join(
+            model, f"chkpnt_fine_{CLI_FINE + RESUME_STEPS}", ckpt.STATE_FILE),
+            map_location="cpu", weights_only=True), run_s)
+    (a, a_s), (b, b_s) = resumed.values()
+    check(a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a),
+        "15a: the blocks resumed from phase 7's checkpoint and from the "
+        "import end in different states")
+    check(int(a["step"]) == CLI_FINE + RESUME_STEPS, f"15a: step {a['step']}")
+    print(f"15a: {RESUME_STEPS} fine steps resumed from phase 7's "
+          f"checkpoint ({a_s:.2f} s) and from the import ({b_s:.2f} s), one "
+          f"capture each: the two states bit for bit over {len(a)} tensors "
+          f"({card})", flush=True)
+    del a, b, resumed
+
+    # 15b. a scene the JAX package trained, on the card
+    with np.load(EXCHANGE_FIXTURE, allow_pickle=False) as z:
+        z = dict(z)
+    tiny_npz = os.path.join(root, "jax_tiny.npz")
+    with open(tiny_npz, "wb") as f:
+        f.write(z["exchange"].tobytes())
+    tiny = os.path.join(root, "jax_tiny")
+    with contextlib.redirect_stdout(buf):
+        state = exchange.import_run(tiny_npz, tiny)
+    with open(os.path.join(tiny, "cfg_args")) as f:
+        ns = SimpleNamespace(**ast.literal_eval(f.read()))
+    hp, opt, pipe, cfg = (tcfg.extract_group(c, ns) for c in (
+        tcfg.ModelHiddenParams, tcfg.OptimizationParams,
+        tcfg.PipelineParams, tcfg.RasterConfig))
+    sh = int(z["sh_degree"])
+
+    def camera(device, **maps):
+        def t(k):
+            return torch.as_tensor(z[f"camera/{k}"], device=device)
+        return Camera(world_view=t("world_view"), full_proj=t("full_proj"),
+                      campos=t("campos"), time=t("time"),
+                      fovx=float(z["camera/fovx"]),
+                      fovy=float(z["camera/fovy"]),
+                      image_height=int(z["camera/height"]),
+                      image_width=int(z["camera/width"]), **maps)
+    cam = camera(dev)
+    bg = torch.zeros(3, device=dev)
+    tk.launches = tk.bwd_launches = 0
+    with torch.no_grad():
+        g = render(cam, state.pool, state.deform, pipe, bg, state.aabb, sh,
+                   "fine", cfg=cfg)
+    torch.cuda.synchronize()
+    render_launches = (tk.launches, tk.bwd_launches)
+    check(render_launches == (1, 0), f"15b: {render_launches} launches")
+    h, w = cam.image_height, cam.image_width
+    bad = torch.zeros(h, w, dtype=torch.bool)
+    pixel_err = torch.zeros(h, w, dtype=torch.float64)
+    for key, ref in (("render", z["render/rgb"]), ("depth",
+                                                   z["render/depth"])):
+        ref = torch.from_numpy(ref).double()
+        err = (g[key].cpu().double() - ref).abs()
+        over = ~(err <= RGBD_ATOL + RGBD_RTOL * ref.abs())
+        bad |= over.any(0) if over.dim() == 3 else over
+        pixel_err = torch.maximum(pixel_err,
+                                  err.amax(0) if err.dim() == 3 else err)
+    worst_rest = float(pixel_err[~bad].max())
+    ys, xs = torch.nonzero(bad, as_tuple=True)
+    flipped = []
+    if len(ys):
+        cpu_state = ckpt.read_checkpoint(
+            tiny_ckpt(tiny), DeformationField(
+                hp, torch.Generator().manual_seed(0), "cpu"),
+            torch.device("cpu"))[0]
+        sg = fine_stream(torch, cam, state.pool, state.deform, bg,
+                         state.aabb, cfg)
+        sc = fine_stream(torch, camera("cpu"), cpu_state.pool,
+                         cpu_state.deform, bg.cpu(), cpu_state.aabb, cfg)
+        for y, x in list(zip(ys.tolist(), xs.tolist()))[
+                :MAX_FLIPPED_PIXELS + 1]:
+            tile = (y // cfg.tile_y) * sg[2] + x // cfg.tile_x
+            flips = threshold_flips(
+                torch, pixel_trace(torch, sg[0], sg[1], tile, x, y),
+                pixel_trace(torch, sc[0], sc[1], tile, x, y))
+            flipped.append((x, y, float(pixel_err[y, x]), flips[:1]))
+        for x, y, e, f in flipped:
+            print(f"  15b: pixel ({x}, {y}) err {e:.3e} against JAX's "
+                  f"render; first differing decision, card vs CPU: {f}",
+                  flush=True)
+    check(len(ys) <= MAX_FLIPPED_PIXELS and all(
+        f and f[0][0] != "unexplained" for *_, f in flipped),
+        f"15b: {len(ys)} pixels beyond tolerance of JAX's render (max abs "
+        f"{float(pixel_err.max()):.3e}; at most {MAX_FLIPPED_PIXELS}, each "
+        f"behind a pair on a threshold)")
+    print(f"15b: the JAX package's scene ({int(state.pool.n_alive)} alive of "
+          f"{state.pool.capacity}, written by the JAX package on the CPU) "
+          f"rendered on the card at {h}x{w}: {len(ys)} pixels beyond "
+          f"{RGBD_ATOL} / rtol {RGBD_RTOL} of JAX's float32 render (each "
+          f"behind a pair on a threshold), max abs err elsewhere "
+          f"{worst_rest:.3e} ({card})", flush=True)
+
+    # a block of fine steps on the JAX-made state, against JAX's render
+    target = camera(dev, image=torch.as_tensor(
+        z["render/rgb"], device=dev).permute(1, 2, 0).contiguous(),
+        depth_map=torch.as_tensor(z["render/depth"], device=dev))
+    before = {k: v.clone() for k, v in state.pool.param_dict().items()}
+    tk.launches = tk.bwd_launches = 0
+    state, aux = train_steps_scan(state, [target] * FIXTURE_STEPS, "fine", sh,
+                                  hp, opt, pipe, cfg, 5.0, bg)
+    torch.cuda.synchronize()
+    graphs.release()
+    launches["15b render + steps"] = (tk.launches + render_launches[0],
+                                      tk.bwd_launches)
+    loss = aux["metrics"]["loss"].cpu()
+    check(bool(torch.isfinite(loss).all()), f"15b: losses {loss.tolist()}")
+    check((tk.launches, tk.bwd_launches) == (FIXTURE_STEPS + 1,) * 2,
+          f"15b: {(tk.launches, tk.bwd_launches)} launches for "
+          f"{FIXTURE_STEPS} steps and a capture's warm-up")
+    moved = [k for k, v in state.pool.param_dict().items()
+             if not torch.equal(v, before[k])]
+    check(len(moved) == len(before), f"15b: only {moved} moved")
+    print(f"15b: {FIXTURE_STEPS} fine steps on the JAX-made state (replays "
+          f"of one capture): loss {float(loss[0]):.6f} -> "
+          f"{float(loss[-1]):.6f}, every pool group moved; phase 15 in "
+          f"{time.time() - t15:.1f} s ({card})", flush=True)
+    del state
+    return launches
+
+
+def tiny_ckpt(model_path):
+    """The one checkpoint directory under ``model_path``."""
+    return next(os.path.join(model_path, d) for d in os.listdir(model_path)
+                if d.startswith("chkpnt_"))
+
+
 def merged_preset(name, path, model, opt):
     """``arguments/<name>`` with its ModelParams and OptimizationParams
     values replaced by ``model`` and ``opt`` (the window, the stride,
@@ -3195,7 +3499,8 @@ T_START = time.time()
 def main(only=None) -> int:
     """The smoke run; ``only="13"`` runs the build and phase 13 alone (on
     a fresh headline state with mid-training moments), ``only="14"`` the
-    build and phase 14 alone; neither prints a result line."""
+    build and phase 14 alone, ``only="15"`` the build and phases 7, 8 and
+    15; none prints a result line."""
     import torch
 
     from s3gaussian_tpu_torch.bench import card_line
@@ -3238,6 +3543,13 @@ def main(only=None) -> int:
     if only == "14":
         scene_matrix_phase(torch, dev, card)
         print("chip_smoke: phase 14 alone, not the smoke run", flush=True)
+        return 0
+    if only == "15":
+        _, argv, out, _, (per_view7, _) = cli_phase(torch, dev, card)
+        _, rec8 = eval_only_phase(torch, argv, out, per_view7, card)
+        exchange_phase(torch, dev, argv, out, rec8, card)
+        print("chip_smoke: phases 7, 8 and 15 alone, not the smoke run",
+              flush=True)
         return 0
     # the headline workload of bench.py
     t0 = time.time()
@@ -3628,7 +3940,7 @@ def main(only=None) -> int:
     train7 = rec7["train_launches"]
 
     # 8. --eval_only on phase 7's model path
-    sweep8, _ = eval_only_phase(torch, argv, out, per_view7, card)
+    sweep8, rec8 = eval_only_phase(torch, argv, out, per_view7, card)
 
     # 9. the waymo_perf preset through the CLI on phase 7's clip
     train9, sweep9 = perf_cli_phase(torch, argv, card)
@@ -3636,6 +3948,12 @@ def main(only=None) -> int:
     # 10. the offline tools on phase 7's model path
     tools10 = tools_phase(torch, out, rec7, card)
     del rec7
+    torch.cuda.empty_cache()
+
+    # 15. checkpoint interchange: phase 7's state across and back, and a
+    # scene the JAX package trained, on the card
+    exchange15 = exchange_phase(torch, dev, argv, out, rec8, card)
+    del rec8
     torch.cuda.empty_cache()
 
     # 14. the scene matrix: nvs, static_nvs and stage2 through the CLI in
@@ -3663,7 +3981,7 @@ def main(only=None) -> int:
             "10 offline tools": tools10, "11 bench": bench11,
             "12a NCCL world 1": dp12a, "12b two gloo ranks": dp12b,
             "12c CLI two gloo ranks": dp12c, "13 graph vs eager": graph13,
-            **scenes14}
+            **scenes14, **exchange15}
     main_launches = tuple(sum(v[i] for v in path.values()) for i in (0, 1))
     print("compositor launches, forward / backward: " + "; ".join(
         f"{k} {v[0]} / {v[1]}" for k, v in path.items())
@@ -3677,6 +3995,9 @@ def main(only=None) -> int:
     check(graph13[0] > 0 and graph13[1] > 0, "phase 13 launched no kernel")
     check(all(v[0] > 0 and v[1] > 0 for v in scenes14.values()),
           "a run of phase 14 launched no kernel")
+    check(all(v[0] > 0 and (v[1] > 0 or "eval_only" in k)
+              for k, v in exchange15.items()),
+          "a run of phase 15 launched no kernel")
     # this process's segment sums over the path (the bench's and the rank
     # processes' are not counted here)
     seg_main = tk.seg_launches - seg_compare
@@ -3729,7 +4050,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--dp-rank"]:
             code = dp_rank_main(*sys.argv[2:])
-        elif sys.argv[1:] in (["--phase", "13"], ["--phase", "14"]):
+        elif sys.argv[1:] in (["--phase", "13"], ["--phase", "14"],
+                              ["--phase", "15"]):
             code = main(only=sys.argv[2])
         else:
             code = main()

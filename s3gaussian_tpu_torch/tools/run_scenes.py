@@ -26,8 +26,9 @@ s3gaussian_tpu_torch.train_cli``, one process per card.  With
 ``device="cpu"`` (the tests) a scene trains in this process, on the CPU.
 ``run_summary.json`` under ``--output`` is rewritten after every scene
 trained; the exit code is 1 unless every scene is ``ok`` or ``dry_run``.
-A chain runs the port's checkpoints only: a JAX package's checkpoint does
-not restore in the port.
+A chain runs the port's checkpoints: a stage-1 run that the JAX package
+trained joins one once ``tools/exchange.py`` has imported it under
+``<prior_root>/<scene>``.
 """
 
 from __future__ import annotations

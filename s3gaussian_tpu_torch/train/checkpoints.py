@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import os
 import shutil
-from dataclasses import replace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -107,33 +106,56 @@ def _deform_tensors(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             if k.startswith("deform.")}
 
 
+def read_stage(path: str) -> Tuple[str, int]:
+    """The (stage, iteration) of the checkpoint at ``path``."""
+    with open(os.path.join(path, "STAGE")) as f:
+        stage, it = f.read().split()
+    return stage, int(it)
+
+
+def state_from_tensors(flat: Dict[str, torch.Tensor], field
+                       ) -> TrainState:
+    """The train state of ``state_tensors``' flat dict; ``field`` receives
+    the saved parameters, the pool has the saved capacity."""
+    field.load_state_dict(_deform_tensors(flat))
+
+    def moments(which):
+        tree: Dict[str, Dict[str, torch.Tensor]] = {}
+        for k, v in flat.items():
+            if k.startswith(f"adam.{which}."):
+                group, name = k[len(f"adam.{which}."):].split(".", 1)
+                tree.setdefault(group, {})[name] = v
+        return tree
+
+    return TrainState(
+        pool=GaussianPool(**{f: flat[f"pool.{f}"] for f in POOL_FIELDS}),
+        deform=field,
+        adam=AdamState(mu=moments("mu"), nu=moments("nu"),
+                       count=flat["adam.count"]),
+        stats=PoolStats(*(flat[f"stats.{f}"] for f in STATS_FIELDS)),
+        step=flat["step"], aabb=flat["aabb"], nan_skips=flat["nan_skips"])
+
+
+def read_checkpoint(path: str, field, device: torch.device
+                    ) -> Tuple[TrainState, str, int]:
+    """The checkpoint at ``path`` on ``device`` at its own pool capacity
+    (no scene needed), ``field`` receiving the saved parameters, with its
+    stage and iteration."""
+    return (state_from_tensors(_load(path, device), field),) + read_stage(
+        path)
+
+
 def load_checkpoint(path: str, template: TrainState
                     ) -> Tuple[TrainState, str, int]:
     """The checkpoint at ``path`` in the shapes of ``template`` (whose
     field receives the saved parameters), with its stage and iteration."""
     flat = _load(path, template.pool.xyz.device)
-    pool = GaussianPool(**{f: flat[f"pool.{f}"] for f in POOL_FIELDS})
     for f in POOL_FIELDS:
-        want = getattr(template.pool, f).shape
-        if pool.__dict__[f].shape != want:
-            raise ValueError(f"{path}: pool.{f} has shape "
-                             f"{tuple(pool.__dict__[f].shape)}, the state "
-                             f"{tuple(want)}")
-    template.deform.load_state_dict(_deform_tensors(flat))
-
-    def moments(which):
-        return {g: {k: flat[f"adam.{which}.{g}.{k}"] for k in d}
-                for g, d in template.adam.mu.items()}
-
-    state = replace(
-        template, pool=pool,
-        adam=AdamState(mu=moments("mu"), nu=moments("nu"),
-                       count=flat["adam.count"]),
-        stats=PoolStats(*(flat[f"stats.{f}"] for f in STATS_FIELDS)),
-        step=flat["step"], aabb=flat["aabb"], nan_skips=flat["nan_skips"])
-    with open(os.path.join(path, "STAGE")) as f:
-        stage, it = f.read().split()
-    return state, stage, int(it)
+        got, want = flat[f"pool.{f}"].shape, getattr(template.pool, f).shape
+        if got != want:
+            raise ValueError(f"{path}: pool.{f} has shape {tuple(got)}, the "
+                             f"state {tuple(want)}")
+    return (state_from_tensors(flat, template.deform),) + read_stage(path)
 
 
 def restore_latest(model_path: str, template: TrainState, who: str

@@ -89,9 +89,25 @@ def graph_key(step: Step, state: TrainState, view, stage: str,
             repr(opt), repr(pipe), repr(cfg), float(spatial_lr_scale))
 
 
+# one side stream per device for every capture: cuBLAS keeps a workspace
+# for each stream it ran on, so a new stream per capture held device
+# memory that grew with every capture of a process
+_side_streams: Dict[int, torch.cuda.Stream] = {}
+
+
+def side_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The stream every capture on ``dev`` runs on."""
+    index = torch.device(dev).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _side_streams:
+        _side_streams[index] = torch.cuda.Stream(index)
+    return _side_streams[index]
+
+
 def capture(dev: torch.device, warmup: Callable[[], Any],
             body: Callable[[], Any]):
-    """``body`` captured as one CUDA graph on a side stream, after
+    """``body`` captured as one CUDA graph on the device's side stream, after
     ``warmup`` ran there once (lazy initialisations: library handles and
     workspaces, constant caches, an NCCL communicator).  Returns (graph,
     body's outputs, warm-up ms, capture ms, compositor launches
@@ -100,7 +116,7 @@ def capture(dev: torch.device, warmup: Callable[[], Any],
     # the capture runs: only this thread's calls must be capture-safe
     mode = ("thread_local" if torch.distributed.is_available()
             and torch.distributed.is_initialized() else "global")
-    side = torch.cuda.Stream(dev)
+    side = side_stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     t0 = time.perf_counter()
     with torch.cuda.stream(side):

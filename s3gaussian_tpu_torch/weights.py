@@ -5,6 +5,7 @@ weights (``jax.tree_util.tree_map(np.asarray, ...)`` on the JAX side).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -140,6 +141,66 @@ def train_state_from_numpy(tree: Any, hp: ModelHiddenParams,
     return TrainState(pool=pool, deform=field, adam=adam, stats=stats,
                       step=t(tree.step, torch.int32), aabb=t(tree.aabb),
                       nan_skips=t(tree.nan_skips, torch.int32))
+
+
+def _put(tree: Dict[Any, Any], path: Tuple[Any, ...], value: np.ndarray
+         ) -> None:
+    """``value`` at ``path`` of a nested dict, an integer element of the
+    path naming a list position (``feature_out``'s, which
+    ``_deform_leaves`` gives in order)."""
+    node: Any = tree
+    for k, nxt in zip(path[:-1], path[1:]):
+        new = [] if isinstance(nxt, int) else {}
+        if isinstance(node, list) and k == len(node):
+            node.append(new)
+        elif isinstance(node, dict) and k not in node:
+            node[k] = new
+        node = node[k]
+    node[path[-1]] = value
+
+
+def _deform_tree(field: DeformationField, tensors: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, Any]:
+    """The JAX field's pytree of ``tensors`` (the field's parameters, or
+    a moment of each, by parameter name), linear weights back to
+    ``[in, out]``."""
+    tree: Dict[str, Any] = {}
+    for name, path, transpose in _deform_leaves(field):
+        arr = tensors[name].detach().cpu().numpy()
+        _put(tree, path, arr.T.copy() if transpose else arr.copy())
+    return tree
+
+
+@torch.no_grad()
+def train_state_to_numpy(state: TrainState) -> SimpleNamespace:
+    """The inverse of ``train_state_from_numpy``: the port's TrainState
+    as the JAX package's ``TrainState`` tree of numpy arrays, its
+    dataclasses as namespaces with the same fields (``pool``, ``deform``,
+    ``adam`` with ``mu``/``nu``/``count``, ``stats``, ``step``, ``aabb``,
+    ``nan_skips``).  The field's moments are placed by parameter name,
+    never by position; every array keeps its dtype."""
+    def a(x):
+        return x.detach().cpu().numpy().copy()
+
+    field = state.deform
+    params = dict(field.named_parameters())
+
+    def moments(m):
+        return {"pool": {k: a(v) for k, v in m["pool"].items()},
+                "deform": _deform_tree(field, m["deform"])}
+
+    return SimpleNamespace(
+        pool=SimpleNamespace(**{k: a(getattr(state.pool, k))
+                                for k in POOL_FIELDS}),
+        deform=_deform_tree(field, params),
+        adam=SimpleNamespace(mu=moments(state.adam.mu),
+                             nu=moments(state.adam.nu),
+                             count=a(state.adam.count)),
+        stats=SimpleNamespace(max_radii2d=a(state.stats.max_radii2d),
+                              xyz_grad_accum=a(state.stats.xyz_grad_accum),
+                              denom=a(state.stats.denom)),
+        step=a(state.step), aabb=a(state.aabb),
+        nan_skips=a(state.nan_skips))
 
 
 def lpips_weights_from_numpy(d: Mapping[str, np.ndarray],

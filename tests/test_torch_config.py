@@ -158,8 +158,8 @@ def test_merge_hparams_sets_only_known_keys():
 def _entry_points():
     from s3gaussian_tpu_torch import bench, train_cli, weights
     from s3gaussian_tpu_torch.tools import (eval_flow_epe, eval_per_view,
-                                            metrics, mini_clip, run_scenes,
-                                            trained)
+                                            exchange, metrics, mini_clip,
+                                            run_scenes, trained)
     from s3gaussian_tpu_torch.data import (blender, cameras, colmap, scene,
                                            waymo)
     from s3gaussian_tpu_torch.models import deformation, hexplane, pool
@@ -191,6 +191,9 @@ def _entry_points():
             "eval_flow_epe.main": eval_flow_epe.main,
             "trained.load_trained": trained.load_trained,
             "run_scenes.main": run_scenes.main,
+            "exchange.import_run": exchange.import_run,
+            "exchange.export_run": exchange.export_run,
+            "exchange.main": exchange.main,
             "init_multihost": multihost.init_multihost}
 
 

@@ -987,6 +987,36 @@ def test_cuda_replay_counts_its_captured_launches(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_captures_share_one_side_stream(cuda_device):
+    """Every capture on a device runs on one side stream, so cuBLAS keeps
+    one workspace for them all: a second capture of another key (a rig
+    after a single camera) reuses the first's stream."""
+    from s3gaussian_tpu_torch.train import graphs
+    from s3gaussian_tpu_torch.train import trainer as tr
+
+    state, args = _graph_setup(cuda_device, seed=14)
+    cams = _graph_cameras(cuda_device, 3, seed=24)
+    graphs.release()
+    streams = []
+    orig = graphs.side_stream
+
+    def recording(dev):
+        streams.append(orig(dev))
+        return streams[-1]
+    graphs.side_stream = recording
+    try:
+        state, _ = tr.train_steps_scan(state, cams[:1], "fine", *args)
+        state, _ = tr.train_steps_scan_multicam(state, [cams], 3, "fine",
+                                                *args)
+    finally:
+        graphs.side_stream = orig
+        graphs.release()
+    assert len(streams) == 2 and streams[0] == streams[1]
+    assert streams[0] == graphs.side_stream(cuda_device)
+    assert streams[0] != torch.cuda.current_stream(cuda_device)
+
+
+@pytest.mark.cuda
 def test_cuda_eager_step_never_waits_for_the_host(cuda_device):
     """One eager step, single and rig, under
     ``torch.cuda.set_sync_debug_mode("error")``: no host sync, so the

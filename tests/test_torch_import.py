@@ -33,8 +33,9 @@ def test_every_port_module_imports_without_jax():
     for m in ("data_parallel", "multihost"):
         assert f"s3gaussian_tpu_torch.parallel.{m}" in mods
     for m in ("mini_clip", "metrics", "eval_per_view", "eval_flow_epe",
-              "trained", "run_scenes"):
+              "trained", "run_scenes", "exchange"):
         assert f"s3gaussian_tpu_torch.tools.{m}" in mods
+    assert "s3gaussian_tpu_torch.utils.exchange_file" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"       # any `import jax` raises
             "sys.modules['s3gaussian_tpu'] = None\n"

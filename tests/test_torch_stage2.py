@@ -7,9 +7,8 @@ Stage 1 is the plain reconstruction (the tiny hexplane, ``--end_time
 2``: frames 0-2) through both CLIs from one initial field.  After its
 first densify the two stage-1 runs differ (``jax.random`` against a
 ``torch.Generator``), so both stage-2 runs start from one prior: JAX's
-``chkpnt_fine_*`` restored with orbax, its ``deform`` converted by
-``weights.deformation_from_numpy`` and written over the port's stage-1
-state with ``train/checkpoints.py::save_checkpoint``.
+``chkpnt_fine_*``, exported by ``scripts/torch_jax_exchange.py`` and
+imported into the port by ``tools/exchange.py::import_run``.
 
 Overrides in the merged stage-2 files, the rest of each preset kept
 (``original_start_time`` 0): the window 50-99 -> 3-5 of the 6 frames;
@@ -26,9 +25,15 @@ the final sweep's splits, metric keys and frame files, and
 (its stage-1 checkpoint into its stage-2 run) carries the field over bit
 for bit; a prior whose heads differ from the fresh field's (a
 ``no_dx`` field and one with a position head) transplants in the port
-as in the JAX package.
+as in the JAX package.  ``tools/run_scenes.py --prior_root`` pointed at
+the imported JAX run gives the stage-2 losses of the same JAX field
+converted by hand (``weights.deformation_from_numpy`` written over the
+port's stage-1 state).
 """
 
+import contextlib
+import importlib.util
+import io
 import os
 
 import jax
@@ -50,14 +55,17 @@ from s3gaussian_tpu_torch.config import OptimizationParams as TOpt
 from s3gaussian_tpu_torch.config import PipelineParams as TPipe
 from s3gaussian_tpu_torch.config import apply_config_file
 from s3gaussian_tpu_torch.data import waymo as twaymo
+from s3gaussian_tpu_torch.models.deformation import DeformationField
+from s3gaussian_tpu_torch.tools import run_scenes
+from s3gaussian_tpu_torch.tools.exchange import import_run
 from s3gaussian_tpu_torch.train import checkpoints as tckpt
 from s3gaussian_tpu_torch.train.trainer import init_state as t_init_state
 from s3gaussian_tpu_torch.weights import (deformation_from_numpy,
                                           pool_from_numpy)
 
-from torch_cli_pairs import (ARGV, FINE, TINY, check_cameras, check_cfg_args,
-                             check_logger, check_losses, check_sweep,
-                             merged_preset, run_pair)
+from torch_cli_pairs import (ARGV, FINE, REPO, TINY, check_cameras,
+                             check_cfg_args, check_logger, check_losses,
+                             check_sweep, merged_preset, read_log, run_pair)
 from test_torch_data import assert_infos_equal
 from waymo_fixture import make_fixture
 from torch_threads import one_torch_thread  # noqa: F401
@@ -81,21 +89,33 @@ def restore_deform(path):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+def jax_exchange():
+    """``scripts/torch_jax_exchange.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "scripts_torch_jax_exchange",
+        os.path.join(REPO, "scripts", "torch_jax_exchange.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.fixture(scope="module")
 def stage1(tmp_path_factory):
     """Stage 1 through both CLIs on frames 0-2, then the prior both
-    stage-2 runs start from.  Returns (clip, JAX checkpoint, the port's
-    own checkpoint, the converted prior)."""
+    stage-2 runs start from: the JAX run exported and imported under
+    ``priors/<clip>``.  Returns (clip, JAX checkpoint, the port's own
+    checkpoint, the imported prior)."""
     root = tmp_path_factory.mktemp("stage1")
     clip = make_fixture(str(root / "clip"), n_frames=N_FRAMES)
-    jout, tout, state, _ = run_pair(
+    jout, tout, _, _ = run_pair(
         root, clip, TINY, argv=["--end_time", str(STAGE1_END),
                                 "--skip_final_eval"])
     jax_ckpt = os.path.join(jout, f"chkpnt_fine_{FINE}")
-    field = deformation_from_numpy(restore_deform(jax_ckpt),
-                                   port_hyper(TINY), "cpu")
-    state.deform.load_state_dict(field.state_dict())
-    prior = tckpt.save_checkpoint(str(root / "prior"), "fine", FINE, state)
+    exchange = str(root / "stage1.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        jax_exchange().export(jout, exchange)
+        import_run(exchange, str(root / "priors" / "clip"), device="cpu")
+    prior = str(root / "priors" / "clip" / f"chkpnt_fine_{FINE}")
     return clip, jax_ckpt, os.path.join(tout, f"chkpnt_fine_{FINE}"), prior
 
 
@@ -244,3 +264,42 @@ def test_a_prior_with_other_heads_transplants_as_in_jax(tmp_path,
     assert bool(fresh_pos) == prior_no_dx
     for k, v in fresh_pos.items():
         assert torch.equal(got.state_dict()[k], v), k
+
+
+def test_run_scenes_chains_an_imported_jax_run_as_a_hand_converted_prior(
+        stage1, tmp_path, monkeypatch):
+    """``tools/run_scenes.py --prior_root`` finds the imported JAX stage-1
+    run; its stage-2 losses equal those of ``train_cli`` from the same JAX
+    field converted by hand and written over the port's stage-1 state."""
+    clip, jax_ckpt, own, prior = stage1
+    config, _ = merged_preset(tmp_path, "stage2.py", ModelParams=WINDOW,
+                              OptimizationParams=CADENCE)
+    field = deformation_from_numpy(restore_deform(jax_ckpt),
+                                   port_hyper(TINY), "cpu")
+    state = tckpt.read_checkpoint(own, DeformationField(
+        port_hyper(TINY), torch.Generator().manual_seed(0), "cpu"),
+        torch.device("cpu"))[0]
+    state.deform.load_state_dict(field.state_dict())
+    by_hand = tckpt.save_checkpoint(str(tmp_path / "by_hand"), "fine", FINE,
+                                    state)
+    monkeypatch.setenv("S3G_LOG_EVERY", "1")
+    monkeypatch.delenv("S3G_LPIPS_WEIGHTS", raising=False)
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = run_scenes.main(
+            ["--data_root", os.path.dirname(clip), "--scenes", "clip",
+             "--output", str(tmp_path / "driver"), "--configs", config,
+             "--prior_root", os.path.dirname(os.path.dirname(prior)), "--"]
+            + ARGV + ["--skip_final_eval"], device="cpu")
+        train_cli.main(["-s", clip, "--model_path", str(tmp_path / "hand"),
+                        "--configs", config] + ARGV
+                       + ["--prior_checkpoint", by_hand, "--skip_final_eval"],
+                       device="cpu")
+    assert rc == 0
+    assert f"transplanting deformation from {prior}" in buf.getvalue()
+
+    def losses(out):
+        return [(l["stage"], l["step"], l["Loss"]) for l in read_log(out)
+                if "Loss" in l]
+    got = losses(str(tmp_path / "driver" / "clip"))
+    assert len(got) == 3 + FINE
+    assert got == losses(str(tmp_path / "hand"))
