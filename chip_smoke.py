@@ -8,9 +8,9 @@ Phases, a few lines of output each (any failure exits non-zero before the
 last line):
 
   1. the card (``nvidia-smi`` name and power limit), capability 9.0;
-  2. build the three CUDA kernels from ``s3gaussian_tpu_torch/csrc`` (the
-     two compositors and the segment sum; one ``nvcc`` each, in
-     parallel), with ptxas registers and spills;
+  2. build the four CUDA kernels from ``s3gaussian_tpu_torch/csrc`` (the
+     two compositors, the segment sum and the train step's span mark;
+     one ``nvcc`` each, in parallel), with ptxas registers and spills;
   3. each kernel vs its plain PyTorch version on the sorted pair stream of
      one full-width view and of a high-opacity variant (early exit), with
      the tolerances of ``tests/test_tile_kernels.py``, and both times
@@ -149,7 +149,12 @@ last line):
      ``torch.cuda.set_sync_debug_mode("error")``.  Per block: the
      warm-up and capture ms, ms a step replayed and eager (CUDA events,
      median), device operations, host launch calls and device ms a step
-     as ``torch.profiler`` counts them, peak and reserved memory.  (e) Two
+     as ``torch.profiler`` counts them, peak and reserved memory.  The
+     span marks of (a) and (b) (``utils/spans.py``): one ``span_mark``
+     launch a mark of the step's sequence captured and counted a replay
+     and a warm-up step, as many ``span_mark`` kernels a replayed step in
+     the profile, the replayed steps' spans within 5% of their
+     CUDA-event time; the marks' device ms a step printed.  (e) Two
      eager steps from one state give the same bits (loss, parameters,
      moments, statistics): the headline camera and 5b's rig with
      two-class emission here, the Waymo rig with its cull in 6c; a step's
@@ -180,10 +185,11 @@ Then the compositor launches of every phase that drives the port's
 paths (4, 5, 5b, 6c, 7, 7b's replayed sweep, 8, 9, 10, 11, 12a-c, 13,
 14a-c, 12b and 12c summed over both ranks; not the comparisons of 3, 6
 and 6b),
-the segment-sum launches of this process's phases from 4 on but 6 and 6b
-(the bench's and the rank processes' run in their own processes and are
-not counted), one JSON line with the three kernels (their launches over
-those phases), the script's wall time, the card line, and last
+the segment-sum and span-mark launches of this process's phases from 4
+on but 6 and 6b (the bench's and the rank processes' run in their own
+processes and are not counted), one JSON line with the four kernels
+(their launches over those phases; a span mark's device ms from phase
+13's profiles), the script's wall time, the card line, and last
 ``{"ok": true, "device": {...}}``.
 The port imports no jax; neither does this script.
 """
@@ -339,6 +345,9 @@ DP_LABEL = "two ranks sharing one card, gloo: not a scaling figure"
 GRAPH_BLOCK, GRAPH_RIGS, GRAPH_SPLIT, GRAPH_DP = 10, 3, 3, 5
 GRAPH_FOVS = (0.9, 1.0, 1.1)
 GRAPH_PROFILE = 2
+# phase 13: how far a replayed block's spans may sum from its CUDA-event
+# time (tests/test_torch_spans.py's gate)
+SPAN_COVER = 0.05
 # 13e: the two-class budget of the repeated rig step
 REPEAT_BIG_BUDGET = 65_536
 LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -1170,10 +1179,10 @@ def sweep_graph_phase(torch, rec, card):
             g = graphs.render_graph(("7b",), rig_fn, rig, {})
             ms_e = cuda_ms(torch, lambda: rig_fn(rig), reps=3, warmup=1)
             ms_g = cuda_ms(torch, lambda: g.run(rig), reps=10)
-            dev_e, calls_e, kms_e = profile_counts(torch, lambda: rig_fn(rig),
-                                                   1)
-            dev_g, calls_g, kms_g = profile_counts(torch, lambda: g.run(rig),
-                                                   1)
+            dev_e, calls_e, kms_e, _ = profile_counts(
+                torch, lambda: rig_fn(rig), 1)
+            dev_g, calls_g, kms_g, _ = profile_counts(
+                torch, lambda: g.run(rig), 1)
             cap = (g.warmup_ms, g.capture_ms)
             graphs.release()
     finally:
@@ -3108,10 +3117,11 @@ def dp_cli_phase(clip, card):
 
 
 def profile_counts(torch, fn, n_steps):
-    """(device operations, host launch calls, device ms) a step of what
-    ``fn`` runs, as ``torch.profiler`` counts them: the kernels, copies
-    and fills the card ran, and the runtime calls that launched them (a
-    graph replay is one ``cudaGraphLaunch``)."""
+    """(device operations, host launch calls, device ms, (``span_mark``
+    kernels, their device ms)) a step of what ``fn`` runs, as
+    ``torch.profiler`` counts them: the kernels, copies and fills the
+    card ran, and the runtime calls that launched them (a graph replay is
+    one ``cudaGraphLaunch``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3123,8 +3133,11 @@ def profile_counts(torch, fn, n_steps):
     device = [e for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA]
     calls = [e for e in events if e.name in LAUNCH_CALLS]
+    marks = [e for e in device if e.name == "span_mark"]
     return (len(device) / n_steps, len(calls) / n_steps,
-            sum(e.device_time_total for e in device) / 1e3 / n_steps)
+            sum(e.device_time_total for e in device) / 1e3 / n_steps,
+            (len(marks) / n_steps,
+             sum(e.device_time_total for e in marks) / 1e3 / n_steps))
 
 
 def compare_blocks(torch, start, s_graph, s_eager, aux_g, aux_e, what):
@@ -3269,8 +3282,14 @@ def graph_phase(torch, su, state, card):
     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in a step).
     Prints per block the capture ms, ms a step replayed and eager (CUDA
     events, median), device operations and host launch calls a step as
-    the profiler counts them, and the peak memory of either.  Returns
-    the compositor launches of the replays."""
+    the profiler counts them, and the peak memory of either.  The stage
+    marks of (a) and (b) (``utils/spans.py``): the graph captured one
+    ``span_mark`` launch a mark of the step's sequence, the replays and
+    the warm-up step launched them again, a profile of the replays holds
+    as many ``span_mark`` kernels, and the replayed steps' spans sum to
+    within SPAN_COVER of their CUDA-event time.  Returns the compositor
+    launches of the replays and (``span_mark`` kernels, their device ms)
+    a step of the profiled replays of (a) and (b)."""
     import torch.distributed as dist
 
     from s3gaussian_tpu_torch.ops import tile_kernels as tk
@@ -3279,6 +3298,7 @@ def graph_phase(torch, su, state, card):
     from s3gaussian_tpu_torch.train import graphs
     from s3gaussian_tpu_torch.train import trainer as tr
     from s3gaussian_tpu_torch.train.checkpoints import state_tensors
+    from s3gaussian_tpu_torch.utils import spans
 
     dev = su.bg.device
     args = ("fine", 3, su.hp, su.opt, su.pipe, su.cfg, SPATIAL_LR_SCALE,
@@ -3324,11 +3344,12 @@ def graph_phase(torch, su, state, card):
 
     def replayed(st, views, scan, n_cams):
         marks = []
-        l0 = (tk.launches, tk.bwd_launches)
+        l0 = (tk.launches, tk.bwd_launches, tk.mark_launches)
         extra = (n_cams,) if n_cams else ()
         st, aux = scan(st, views, *extra, *args, marks=marks)
         torch.cuda.synchronize()
-        got = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+        got = (tk.launches - l0[0], tk.bwd_launches - l0[1],
+               tk.mark_launches - l0[2])
         ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
         return st, aux, ms, got
 
@@ -3352,21 +3373,36 @@ def graph_phase(torch, su, state, card):
             lambda: replayed(state_to(torch, base, dev), views, scan, n_cams))
         g = graphs.current()
         n = len(views)
+        # the capture's mark sequence: its spans and the closing mark
+        n_marks = len(spans.last_marks()) + 1
         check(g.launches == (b, b),
               f"{what}: the graph captured {g.launches} launches for {b} "
               f"camera(s)")
-        check(got == ((n + 1) * b,) * 2,
-              f"{what}: {got} launches for {n} replays and the capture's "
-              f"warm-up step of {b} camera(s)")
+        check(got[:2] == ((n + 1) * b,) * 2,
+              f"{what}: {got[:2]} launches for {n} replays and the "
+              f"capture's warm-up step of {b} camera(s)")
+        check(g.mark_launches == n_marks and got[2] == (n + 1) * n_marks,
+              f"{what}: {g.mark_launches} span marks captured and {got[2]} "
+              f"launched for {n} replays and a warm-up step of "
+              f"{n_marks} marks")
+        span_ms = aux_g["span_ns"].double().sum(1).cpu() / 1e6
+        cover = float(span_ms.sum()) / sum(ms_g)
+        check(abs(cover - 1.0) <= SPAN_COVER,
+              f"{what}: the replayed steps' spans sum to "
+              f"{float(span_ms.sum()):.3f} ms, their CUDA-event time is "
+              f"{sum(ms_g):.3f} ms")
         worst, acc_err = compare_blocks(torch, start, s_g, s_e, aux_g, aux_e,
                                         what)
         prof_views = views[:GRAPH_PROFILE]
-        dev_e, calls_e, kms_e = profile_counts(
+        dev_e, calls_e, kms_e, _ = profile_counts(
             torch, lambda: eager(s_e, prof_views, step, False),
             GRAPH_PROFILE)
-        dev_g, calls_g, kms_g = profile_counts(
+        dev_g, calls_g, kms_g, (marks_g, mark_ms) = profile_counts(
             torch, lambda: replayed(s_g, prof_views, scan, n_cams),
             GRAPH_PROFILE)
+        check(marks_g == n_marks, f"{what}: {marks_g} span_mark kernels "
+              f"a replayed step in the profile, the sequence has {n_marks}")
+        mark_stats.append((marks_g, mark_ms))
         med_e, med_g = float(np.median(ms_e)), float(np.median(ms_g))
         print(f"13 {what}: {n} steps of {b} camera(s), replayed vs eager "
               f"from one mid-training state: worst update error "
@@ -3385,11 +3421,15 @@ def graph_phase(torch, su, state, card):
               f"{peak_g:.2f} GiB replayed (warm-up and capture included) / "
               f"{peak_e:.2f} eager, reserved after {res_g:.2f} / "
               f"{res_e:.2f} GiB; {g.launches[0]} forward / {g.launches[1]} "
-              f"backward launches a replay ({card})", flush=True)
+              f"backward launches a replay; {n_marks} span marks a step, "
+              f"{mark_ms:.4f} device ms a step in {marks_g:.0f} span_mark "
+              f"kernels, the spans' sum {cover:.4f} of the CUDA-event time "
+              f"({card})", flush=True)
         del s_e, aux_e
         return s_g
 
     t13 = time.time()
+    mark_stats = []
     block_case("(a) fine block", singles, tr.train_step, tr.train_steps_scan,
                0)
     block_case("(b) rig block", rigs, tr.train_step_multicam,
@@ -3460,8 +3500,9 @@ def graph_phase(torch, su, state, card):
         (s_dp, aux_dp, ms_dp, got), peak_dp, _ = measured(lambda: replayed(
             state_to(torch, base, dev), views, dp.parallel_train_steps_scan,
             0))
-        check(got == (GRAPH_DP + 1,) * 2,
-              f"13 (d): {got} launches for {GRAPH_DP} replays and a warm-up")
+        check(got[:2] == (GRAPH_DP + 1,) * 2,
+              f"13 (d): {got[:2]} launches for {GRAPH_DP} replays and a "
+              f"warm-up")
         g = graphs.current()
         graphs.release()
         worst, acc_err = compare_blocks(torch, start, s_dp, s_one, aux_dp,
@@ -3490,7 +3531,7 @@ def graph_phase(torch, su, state, card):
     print(f"13: graph vs eager in {time.time() - t13:.1f} s; "
           f"{launches[0]} forward / {launches[1]} backward launches",
           flush=True)
-    return launches
+    return launches, tuple(sum(x) for x in zip(*mark_stats))
 
 
 T_START = time.time()
@@ -3662,7 +3703,7 @@ def main(only=None) -> int:
     rasterize_calls = 0
     frame_ms = []
     renders = []
-    tk.launches = tk.bwd_launches = tk.seg_launches = 0
+    tk.launches = tk.bwd_launches = tk.seg_launches = tk.mark_launches = 0
     with torch.no_grad():
         for cam in cams:
             torch.cuda.synchronize()
@@ -3803,10 +3844,11 @@ def main(only=None) -> int:
 
     # 13. the train step as a captured CUDA graph against the eager step,
     # from 5b's mid-training state
-    graph13 = graph_phase(torch, su, state, card)
+    graph13, marks13 = graph_phase(torch, su, state, card)
     del state
 
     seg_compare = tk.seg_launches
+    mark_compare = tk.mark_launches
     # 6. small scene: GPU vs CPU (plain compositors): render + train step,
     # with the field made anew from its seed, then the renders with the
     # field phase 5 trained in place
@@ -3924,6 +3966,7 @@ def main(only=None) -> int:
     small_rig_step(torch, dev, hp, opt, pipe, bg, card)
 
     seg_compare = tk.seg_launches - seg_compare
+    mark_compare = tk.mark_launches - mark_compare
     del su, pool, deform, cams, small_pool, cpu_pool, s_gpu, s_cpu
     torch.cuda.empty_cache()
 
@@ -4002,8 +4045,10 @@ def main(only=None) -> int:
     # processes' are not counted here)
     seg_main = tk.seg_launches - seg_compare
     check(seg_main > 0, "the path launched no segment-sum kernel")
+    mark_main = tk.mark_launches - mark_compare
+    check(mark_main > 0, "the path launched no span-mark kernel")
     print(f"segment-sum launches over this process's phases of the path: "
-          f"{seg_main}", flush=True)
+          f"{seg_main}; span-mark launches: {mark_main}", flush=True)
     print(f"smoke run: {time.time() - T_START:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -4037,6 +4082,21 @@ def main(only=None) -> int:
         "bound_ms": seg["bound"][0],
         "bound_by": seg["bound"][1],
         "library_ms": seg["library_ms"],
+    })
+    kernels.append({
+        "name": "span_mark",
+        "route": "cuda",
+        "source": "s3gaussian_tpu_torch/csrc/span_mark.cu",
+        # no Pallas kernel: the train step's stage marks (utils/spans.py)
+        "replaces": None,
+        "launches": mark_main,
+        "max_abs_err": None,
+        # a launch's device time in phase 13's profiles of replayed steps
+        "ms": marks13[1] / marks13[0],
+        "plain_ms": None,
+        "bound_ms": None,
+        "bound_by": "launch",
+        "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

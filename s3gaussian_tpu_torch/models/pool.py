@@ -21,6 +21,7 @@ import torch
 from s3gaussian_tpu_torch.ops.knn import mean_knn_dist2
 from s3gaussian_tpu_torch.ops.sh import RGB2SH
 from s3gaussian_tpu_torch.ops.transforms import quat_to_rotmat
+from s3gaussian_tpu_torch.utils import spans
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -112,18 +113,21 @@ def add_densification_stats(stats: PoolStats,
         denom=stats.denom + inc)
 
 
+@spans.host("pool.init")
 def create_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
                     max_sh_degree: int = 3,
                     device: torch.device | str = "cuda") -> GaussianPool:
     """Initialize from a (LiDAR) point cloud: DC features from RGB2SH,
     scale = log sqrt(mean 3-NN dist²) clamped >= 1e-7, identity quats,
     opacity = inv_sigmoid(0.1); dead slots get identity quats and logit
-    -9.21 (sigmoid ~ 1e-4)."""
+    -9.21 (sigmoid ~ 1e-4).  The host spans ``pool.init`` and, inside
+    it, ``pool.knn``."""
     n = points.shape[0]
     if n > capacity:
         raise ValueError(f"{n} points > pool capacity {capacity}")
     k = (max_sh_degree + 1) ** 2
-    dist2 = np.maximum(mean_knn_dist2(points), 1e-7)
+    with spans.host("pool.knn"):
+        dist2 = np.maximum(mean_knn_dist2(points), 1e-7)
     scales = np.log(np.sqrt(dist2))[:, None].repeat(3, axis=1)
 
     def padded(x, shape, fill=0.0):

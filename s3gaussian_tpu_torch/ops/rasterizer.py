@@ -22,6 +22,12 @@ periphery at ``big_rank``, with two-class emission), and expanded back to
 the pool by rank, a gather.  Autograd of ``data[:, gid]`` would
 accumulate through ``index_put_``.
 Every other gradient (EWA projection, covariance, SH) is autograd.
+
+Inside a train step the three stages are marked (``utils/spans.py``):
+``project.fwd``, ``bin.fwd`` and ``composite.fwd`` where each starts, and
+their backward passes through identities on each stage's outputs: the
+render's maps (``composite.bwd``), the pair stream (``bin.bwd``) and the
+projection's outputs that the feature rows pack (``project.bwd``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from s3gaussian_tpu_torch.ops.binning import (PairKeys, make_pair_keys,
 from s3gaussian_tpu_torch.ops.project import (ProjectedGaussians, build_cov3d,
                                               project_gaussians, sh_to_color)
 from s3gaussian_tpu_torch.ops.tile_kernels import CompositeTiles
+from s3gaussian_tpu_torch.utils import spans
 
 
 class RasterSettings(NamedTuple):
@@ -85,6 +92,9 @@ def project_and_key(settings: RasterSettings, means3d: torch.Tensor,
         opacities=opacities if cfg.tight_rect else None)
     colors = (sh_to_color(shs, means3d, settings.campos, settings.sh_degree)
               if colors_precomp is None else colors_precomp)
+    packed = spans.grad_mark("project.bwd", proj.xy, proj.conic, opacities,
+                             colors, proj.depth)
+    spans.mark("bin.fwd")
     nr = min(cfg.max_visible, means3d.shape[0])
     nb = (min(cfg.big_budget, nr)
           if (cfg.big_budget > 0 and cfg.rect_cap > 4 and cfg.rect_w >= 2
@@ -94,8 +104,7 @@ def project_and_key(settings: RasterSettings, means3d: torch.Tensor,
         cfg.max_visible, cfg.rect_w, cfg.rect_h, cfg.tile_x, cfg.tile_y,
         opacities=opacities.detach() if cfg.tight_rect else None,
         big_budget=nb)
-    feat_pool = comp.pack_pool_features(proj.xy, proj.conic, opacities,
-                                        colors, proj.depth)
+    feat_pool = comp.pack_pool_features(*packed)
     return proj, pk, feat_pool
 
 
@@ -195,16 +204,20 @@ def rasterize(settings: RasterSettings, means3d: torch.Tensor,
     respect to every float input and ``mean2d_tap``."""
     h, w = settings.image_height, settings.image_width
     grid_x, grid_y = grid_dims(settings, cfg)
+    spans.mark("project.fwd")
     proj, pk, feat_pool = project_and_key(
         settings, means3d, opacities, scales, rotations, shs, colors_precomp,
         cov3d_precomp, alive, cfg, mean2d_tap)
     stream, tile_starts, n_pairs, overflow_pairs = sort_stream(
         feat_pool, pk, grid_x * grid_y, cfg.rect_cap, cfg.pair_budget)
+    (stream,) = spans.grad_mark("bin.bwd", stream)
+    spans.mark("composite.fwd")
     out = CompositeTiles.apply(stream, tile_starts, grid_x, grid_y,
                                cfg.tile_x, cfg.tile_y)
     maps = comp.unpack_tiles(out, h, w, grid_x, grid_y, cfg.tile_x,
                              cfg.tile_y)
     color = maps["rgb"] + maps["final_T"][None] * settings.bg[:, None, None]
+    color, depth = spans.grad_mark("composite.bwd", color, maps["depth"])
     aux = {
         "final_T": maps["final_T"],
         "n_contrib": maps["n_contrib"],
@@ -215,4 +228,4 @@ def rasterize(settings: RasterSettings, means3d: torch.Tensor,
         "overflow_pairs": overflow_pairs,
         "visible": proj.visible,
     }
-    return color, proj.radius, maps["depth"], aux
+    return color, proj.radius, depth, aux

@@ -2,8 +2,9 @@
 function around them (port of ``s3gaussian_tpu/ops/tile_kernels.py``:
 ``composite_fwd_pallas`` → ``csrc/composite_fwd.cu``,
 ``composite_bwd_pallas`` → ``csrc/composite_bwd.cu``), and the build and
-launch counts of every CUDA kernel of the port (also
-``csrc/segment_sum.cu``, wrapped by ``ops/segsum.py``).
+launch counts of the port's compute kernels (also ``csrc/segment_sum.cu``,
+wrapped by ``ops/segsum.py``), and the launch of the step's stage mark
+``csrc/span_mark.cu`` (``utils/spans.py``).
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C entry point, keyed by a hash of its source,
@@ -36,22 +37,28 @@ from s3gaussian_tpu_torch.ops.composite import (N_OUT_ROWS, PAIR_FEAT_DIM,
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"composite_fwd": _PKG / "csrc" / "composite_fwd.cu",
            "composite_bwd": _PKG / "csrc" / "composite_bwd.cu",
-           "segment_sum": _PKG / "csrc" / "segment_sum.cu"}
+           "segment_sum": _PKG / "csrc" / "segment_sum.cu",
+           "span_mark": _PKG / "csrc" / "span_mark.cu"}
+# the C entry point of each library, where it is not the source's name
+ENTRY = {"span_mark": "span_mark_at"}
 HEADER = _PKG / "csrc" / "composite_common.cuh"   # the compositors' own
 BUILD_DIR = _PKG.parent / "build" / "s3gaussian_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel launches made by composite_fwd / composite_bwd /
-# segsum.sum_ranges (CPU calls do not count).  A launch made while the
-# stream captures a CUDA graph runs only when the graph is replayed: it
-# goes to ``captured`` instead, and the graph's owner (train/graphs.py)
-# adds what it captured once per replay through ``count_replay``
+# segsum.sum_ranges / span_mark (CPU calls do not count).  A launch made
+# while the stream captures a CUDA graph runs only when the graph is
+# replayed: it goes to ``captured`` instead, and the graph's owner
+# (train/graphs.py) adds what it captured once per replay through
+# ``count_replay``
 launches = 0
 bwd_launches = 0
 seg_launches = 0
+mark_launches = 0
 captured = [0, 0]           # forward, backward
 seg_captured = 0
+mark_captured = 0
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # The launch geometry both kernels are compiled for
@@ -162,10 +169,12 @@ def _load(name: str) -> ctypes.CDLL:
         build()
         lib = ctypes.CDLL(str(library_path(name)))
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        fn = getattr(lib, name)
+        fn = getattr(lib, ENTRY.get(name, name))
         # ..., grid_x, grid_y, tile_x, tile_y, threads, smem_bytes
         dims = [i32] * 6
-        if name == "composite_fwd":
+        if name == "span_mark":     # stamps, slot, stream
+            fn.argtypes = [ptr, i32, ptr]
+        elif name == "composite_fwd":
             fn.argtypes = [ptr, i64, ptr, ptr, *dims, ptr]
         elif name == "composite_bwd":
             fn.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, *dims, ptr]
@@ -177,29 +186,50 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 def _count(kind: int) -> None:
-    """One launch of the forward (0), backward (1) or segment-sum (2)
-    kernel."""
+    """One launch of the forward (0), backward (1), segment-sum (2) or
+    span-mark (3) kernel."""
     global launches, bwd_launches, seg_launches, seg_captured
+    global mark_launches, mark_captured
     if torch.cuda.is_current_stream_capturing():
         if kind == 2:
             seg_captured += 1
+        elif kind == 3:
+            mark_captured += 1
         else:
             captured[kind] += 1
     elif kind == 0:
         launches += 1
     elif kind == 1:
         bwd_launches += 1
-    else:
+    elif kind == 2:
         seg_launches += 1
+    else:
+        mark_launches += 1
 
 
-def count_replay(fwd: int, bwd: int, seg: int = 0) -> None:
+def count_replay(fwd: int, bwd: int, seg: int = 0, marks: int = 0) -> None:
     """A replay of a CUDA graph that captured ``fwd`` forward, ``bwd``
-    backward and ``seg`` segment-sum launches launched them again."""
-    global launches, bwd_launches, seg_launches
+    backward, ``seg`` segment-sum and ``marks`` span-mark launches
+    launched them again."""
+    global launches, bwd_launches, seg_launches, mark_launches
     launches += fwd
     bwd_launches += bwd
     seg_launches += seg
+    mark_launches += marks
+
+
+def span_mark(stamps: torch.Tensor, slot: int) -> None:
+    """Launch ``csrc/span_mark.cu`` on the current stream: the device's
+    clock (ns) into ``stamps[slot]``, an int64 CUDA tensor; counted in
+    ``mark_launches``."""
+    lib = _load("span_mark")
+    with torch.cuda.device(stamps.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.span_mark_at(stamps.data_ptr(), slot, stream)
+    if err != 0:
+        raise RuntimeError(f"span_mark kernel launch failed: CUDA error "
+                           f"{err}")
+    _count(3)
 
 
 def _check_stream(name: str, pair_feat: torch.Tensor,

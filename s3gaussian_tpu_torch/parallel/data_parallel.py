@@ -17,6 +17,10 @@ reduce, as the JAX package's ``shard_map`` body does with ``psum`` /
     max; the four budget counters: the max (the worst rank, never
     averaged).
 
+The span counters (``utils/spans.py``: ``span_ns``, ``field_rows``,
+``visible_rows``) stay each rank's own; the reductions are the step's
+``allreduce`` span.
+
 Every rank then applies the same reduced gradient to the same state
 (``trainer.apply_param_update``, whose NaN watchdog reads the reduced
 loss, so a NaN on one rank skips the step on all), and the replicas stay
@@ -55,6 +59,7 @@ from s3gaussian_tpu_torch.train.trainer import (TrainState,
                                                 rig_stats, scan_steps,
                                                 step_forward,
                                                 step_gradients)
+from s3gaussian_tpu_torch.utils import spans
 
 COUNTERS = ("n_pairs", "overflow_rect", "overflow_visible", "overflow_pairs")
 Terms = Dict[str, torch.Tensor]
@@ -108,6 +113,7 @@ def reduced_update(state: TrainState, grads, tap_term: torch.Tensor,
     update with the reduced ones.  Returns the new state and the reduced
     aux (metrics, radii, visibility, counters and, with a count,
     ``vis_count``)."""
+    spans.mark("allreduce")
     world = dist.get_world_size()
     sums, maxes = all_reduce_buckets(*step_buckets(
         grads, tap_term, vis_count, loss.detach(), aux))
@@ -126,6 +132,7 @@ def reduced_update(state: TrainState, grads, tap_term: torch.Tensor,
     return new_state, out
 
 
+@spans.step
 def parallel_train_step(state: TrainState, camera: Camera, stage: str,
                         active_sh_degree: int, hp: ModelHiddenParams,
                         opt: OptimizationParams, pipe: PipelineParams,
@@ -150,6 +157,7 @@ def parallel_train_step(state: TrainState, camera: Camera, stage: str,
                           spatial_lr_scale)
 
 
+@spans.step
 def parallel_train_step_multicam(state: TrainState,
                                  cameras: Sequence[Camera], stage: str,
                                  active_sh_degree: int,

@@ -10,6 +10,10 @@ of the fixed-capacity pool.  ``mean2d_tap`` ([Nc,2] zeros) collects the
 NDC screen gradient of the main pass for the densification statistics.
 With ``cull_before_deform`` the fine stage first culls the undeformed
 pool to a working set of ``max_visible`` rows (``ops/compact.py``).
+Inside a train step the stages are marked (``utils/spans.py``): the
+cull, the field forward and, through an identity on its outputs, its
+backward; projection and SH per camera and pass (``rasterize`` marks
+binning and compositing); the field's rows and their visibility.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from s3gaussian_tpu_torch.ops.compact import (candidates, expand_by_rank,
 from s3gaussian_tpu_torch.ops.project import (build_cov3d, project_gaussians,
                                               sh_to_color)
 from s3gaussian_tpu_torch.ops.rasterizer import RasterSettings, rasterize
+from s3gaussian_tpu_torch.utils import spans
 
 
 def make_settings(camera: Camera, bg: torch.Tensor, sh_degree: int,
@@ -52,6 +57,8 @@ def _attributes(pool: GaussianPool, deform: Optional[DeformationField],
             pool.xyz, pool.scaling, pool.rotation, pool.opacity,
             pool.get_features())
     elif "fine" in stage:
+        spans.mark("field.fwd")
+        spans.count(field_rows=pool.xyz.shape[0])
         out = deform(pool.xyz, pool.scaling, pool.rotation, pool.opacity,
                      pool.get_features(), time.reshape(()), aabb)
         xyz_f, scales_f, rot_f, op_f, shs_f = (out.xyz, out.scales,
@@ -59,9 +66,14 @@ def _attributes(pool: GaussianPool, deform: Optional[DeformationField],
                                                out.shs)
     else:
         raise NotImplementedError(stage)
-    return (xyz_f, torch.exp(scales_f),
-            rot_f / torch.linalg.norm(rot_f, dim=-1, keepdim=True),
-            torch.sigmoid(op_f)[:, 0], shs_f, out)
+    attrs = (xyz_f, torch.exp(scales_f),
+             rot_f / torch.linalg.norm(rot_f, dim=-1, keepdim=True),
+             torch.sigmoid(op_f)[:, 0], shs_f)
+    if out is None:
+        return attrs + (None,)
+    *attrs, dx, feat, dshs = spans.grad_mark("field.bwd", *attrs, out.dx,
+                                             out.feat, out.dshs)
+    return (*attrs, out._replace(dx=dx, feat=feat, dshs=dshs))
 
 
 def cull_working_set(pool: GaussianPool, cameras: Sequence[Camera],
@@ -133,6 +145,7 @@ def render(camera: Camera, pool: GaussianPool,
     vis0 = None
     if (cfg.cull_before_deform and fine and not return_decomposition
             and override_color is None):
+        spans.mark("cull")
         pool, vis0, (mean2d_tap,) = cull_working_set(
             pool, [camera], cfg, scaling_modifier, [mean2d_tap])
     xyz = pool.xyz
@@ -141,6 +154,7 @@ def render(camera: Camera, pool: GaussianPool,
     dx, feat, dshs = ((out.dx, out.feat, out.dshs) if out is not None
                       else (None, None, None))
 
+    spans.mark("project.fwd")
     if override_color is not None:
         colors = override_color
     elif pipe.convert_SHs_python:
@@ -159,6 +173,8 @@ def render(camera: Camera, pool: GaussianPool,
                          alive=alive_mask, cfg=cfg)
 
     color, radii, depth, aux = rast(pool.alive, tap=mean2d_tap)
+    if out is not None:
+        spans.count(visible=aux["visible"])
     if vis0 is not None:
         radii = expand_by_rank(radii, vis0)
         aux = {**aux, "visible": expand_by_rank(aux["visible"], vis0)}
@@ -227,6 +243,7 @@ def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
     taps = (list(mean2d_tap) if percam_tap else [mean2d_tap] * n_cams)
     vis0 = None
     if cfg.cull_before_deform and fine and not return_decomposition:
+        spans.mark("cull")
         pool, vis0, taps = cull_working_set(pool, cameras, cfg, taps=(
             taps if percam_tap else taps[:1]))
         if not percam_tap:
@@ -237,6 +254,7 @@ def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
                       else (None, None, None))
 
     # reference quirk: view directions from the undeformed positions
+    spans.mark("project.fwd")
     colors = [sh_to_color(shs_f, pool.xyz, cam.campos, active_sh_degree)
               if pipe.convert_SHs_python else None for cam in cameras]
 
@@ -271,6 +289,8 @@ def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
                 make_settings(cameras[b], bg, active_sh_degree),
                 xyz_f.detach(), op_act, scales=scales_act, rotations=rot_act,
                 colors_precomp=feat, alive=pool.alive, cfg=cfg)[0])
+    if out is not None:
+        spans.count(visible=visible_red)
     if vis0 is not None:
         # the reductions commute with the expansion: one after the loop
         radii_red, visible_red, vis_count = (

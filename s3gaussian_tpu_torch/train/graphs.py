@@ -39,16 +39,16 @@ failed capture raises.  Only one graph is held at a time: a new key
 frees the old graph and its private memory pool (the stage only
 advances), and ``release`` frees it before the evaluation sweep.
 
-The compositor launches made inside a capture are counted once per
-replay (``ops/tile_kernels.py::count_replay``).  Data-parallel steps
-capture their all-reduces, which NCCL supports and gloo does not.
+The kernel launches made inside a capture (compositors, segment sums,
+span marks) are counted once per replay
+(``ops/tile_kernels.py::count_replay``).  Data-parallel steps capture
+their all-reduces, which NCCL supports and gloo does not.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -61,6 +61,7 @@ from s3gaussian_tpu_torch.ops import tile_kernels as tk
 from s3gaussian_tpu_torch.train.checkpoints import state_tensors
 from s3gaussian_tpu_torch.train.trainer import (TrainState, small_aux,
                                                 stack_aux)
+from s3gaussian_tpu_torch.utils import spans
 
 Step = Callable[..., Tuple[TrainState, Dict[str, Any]]]
 
@@ -111,28 +112,28 @@ def capture(dev: torch.device, warmup: Callable[[], Any],
     ``warmup`` ran there once (lazy initialisations: library handles and
     workspaces, constant caches, an NCCL communicator).  Returns (graph,
     body's outputs, warm-up ms, capture ms, compositor launches
-    captured (forward, backward), segment-sum launches captured)."""
+    captured (forward, backward), segment-sum and span-mark launches
+    captured); the two times are the host spans ``graph.warmup`` and
+    ``graph.capture`` (``utils/spans.py``)."""
     # a collective's watchdog queries events from its own thread while
     # the capture runs: only this thread's calls must be capture-safe
     mode = ("thread_local" if torch.distributed.is_available()
             and torch.distributed.is_initialized() else "global")
     side = side_stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
-    t0 = time.perf_counter()
-    with torch.cuda.stream(side):
-        warmup()
-    side.synchronize()
-    warmup_ms = (time.perf_counter() - t0) * 1e3
+    with spans.host("graph.warmup") as warm:
+        with torch.cuda.stream(side):
+            warmup()
+        side.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = list(tk.captured) + [tk.seg_captured]
-    t0 = time.perf_counter()
-    with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
-        out = body()
-    torch.cuda.synchronize(dev)
-    capture_ms = (time.perf_counter() - t0) * 1e3
-    return (graph, out, warmup_ms, capture_ms,
+    before = list(tk.captured) + [tk.seg_captured, tk.mark_captured]
+    with spans.host("graph.capture") as cap:
+        with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
+            out = body()
+        torch.cuda.synchronize(dev)
+    return (graph, out, warm.ms, cap.ms,
             (tk.captured[0] - before[0], tk.captured[1] - before[1]),
-            tk.seg_captured - before[2])
+            tk.seg_captured - before[2], tk.mark_captured - before[3])
 
 
 def static_cameras(cams: Sequence[Camera], dev: torch.device
@@ -188,7 +189,7 @@ class StepGraph:
             body(scratch)
 
         (self.graph, self.out, self.warmup_ms, self.capture_ms,
-         self.launches, self.seg_launches) = capture(
+         self.launches, self.seg_launches, self.mark_launches) = capture(
             dev, warmup, lambda: body(state))
 
     def load(self, state: TrainState) -> TrainState:
@@ -207,7 +208,8 @@ class StepGraph:
         self.bg.copy_(bg, non_blocking=True)
         self.graph.replay()
         self.replays += 1
-        tk.count_replay(*self.launches, self.seg_launches)
+        tk.count_replay(*self.launches, self.seg_launches,
+                        self.mark_launches)
         return self.out
 
 
@@ -254,7 +256,8 @@ class RenderGraph:
             return fn(self.cams, **self.inputs)
 
         (self.graph, self.out, self.warmup_ms, self.capture_ms,
-         self.launches, self.seg_launches) = capture(dev, body, body)
+         self.launches, self.seg_launches, self.mark_launches) = capture(
+             dev, body, body)
 
     def run(self, cams: Sequence[Camera],
             **inputs: torch.Tensor) -> Dict[str, Any]:
@@ -263,7 +266,8 @@ class RenderGraph:
             self.inputs[k].copy_(v, non_blocking=True)
         self.graph.replay()
         self.replays += 1
-        tk.count_replay(*self.launches, self.seg_launches)
+        tk.count_replay(*self.launches, self.seg_launches,
+                        self.mark_launches)
         return self.out
 
 

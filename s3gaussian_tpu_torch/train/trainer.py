@@ -23,11 +23,18 @@ evaluates the field once for the rig's cameras and pools the losses
 over the stacked renders.  ``densify_step`` and ``opacity_reset_step``
 edit the pool's rows and their Adam moments and return a new state.
 
+A step marks its stages (``utils/spans.py``: the cull, the field, per
+camera and pass projection, binning and compositing, the loss, each of
+their backward passes, the update) and returns their device time by
+name, ``span_ns``, and the field's ``field_rows`` and ``visible_rows``
+beside its aux.
+
 ``train_steps_scan`` and ``train_steps_scan_multicam`` run a block of
 steps, JAX's unit of dispatch: on the card N replays of the step
 captured as one CUDA graph (``train/graphs.py``), with no host read in
 between; on the CPU a loop of the eager step.  Both return the state
-and the per-step ``small_aux`` stacked on a leading step axis.
+and the per-step ``small_aux`` stacked on a leading step axis; a block
+dispatched under a profiler keeps its span counters in the span record.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from s3gaussian_tpu_torch.train.lr import expon_lr
 from s3gaussian_tpu_torch.train.optim import (B1, B2, EPS, AdamState,
                                               adam_update, init_adam,
                                               path_group)
+from s3gaussian_tpu_torch.utils import spans
 
 
 @dataclass
@@ -138,6 +146,7 @@ def _loss_terms(pkg: Dict[str, Any], gt: torch.Tensor,
     a rig's stacked [B,3,H,W]; pooled means over the rig, as the
     reference's ``torch.cat`` of the batch): (loss, aux of radii,
     visibility, budget counters and a ``metrics`` dict of 0-d tensors)."""
+    spans.mark("loss.fwd")
     loss = l1_loss(pkg["render"], gt)
     metrics = {"l1": loss, "psnr": psnr(pkg["render"], gt)}
 
@@ -248,6 +257,7 @@ def apply_param_update(state: TrainState, grads, tap_grad: torch.Tensor,
     rig step's per-camera statistics) ``tap_grad`` is the precomputed
     per-Gaussian sum of the cameras' screen-gradient norms [Nc] and
     ``vis_count`` the denominator's increment."""
+    spans.mark("update")
     # dead pool slots never move: their placeholder values keep all
     # downstream math finite
     alive = state.pool.alive
@@ -309,6 +319,7 @@ def step_gradients(loss: torch.Tensor, tree, tap: torch.Tensor):
     """The backward half: gradients of every tensor of ``tree`` (zeros
     where the loss does not reach it) and of the tap."""
     leaves = [v for d in tree.values() for v in d.values()] + [tap]
+    spans.mark("loss.bwd")
     flat = torch.autograd.grad(loss, leaves, allow_unused=True)
     flat = [torch.zeros_like(v) if g is None else g
             for v, g in zip(leaves, flat)]
@@ -319,6 +330,7 @@ def step_gradients(loss: torch.Tensor, tree, tap: torch.Tensor):
     return grads, flat[-1]
 
 
+@spans.step
 def train_step(state: TrainState, camera: Camera, stage: str,
                active_sh_degree: int, hp: ModelHiddenParams,
                opt: OptimizationParams, pipe: PipelineParams,
@@ -355,6 +367,7 @@ def rig_update(state: TrainState, grads, tap_grad: torch.Tensor,
                ) -> TrainState:
     """``apply_param_update`` of a rig step: the terms of ``rig_stats``,
     every learning rate scaled by ``opt.multicam_lr_scale``."""
+    spans.mark("update")
     tap_term, vis_count = rig_stats(tap_grad, aux, n_cams, opt)
     return apply_param_update(state, grads, tap_term, loss, aux["radii"],
                               aux["visible"], opt, spatial_lr_scale,
@@ -362,6 +375,7 @@ def rig_update(state: TrainState, grads, tap_grad: torch.Tensor,
                               vis_count=vis_count)
 
 
+@spans.step
 def train_step_multicam(state: TrainState, cameras: Sequence[Camera],
                         stage: str, active_sh_degree: int,
                         hp: ModelHiddenParams, opt: OptimizationParams,
@@ -383,7 +397,8 @@ def small_aux(aux: Dict[str, Any]) -> Dict[str, Any]:
     """The per-step scalars a block of steps returns (JAX's
     ``_small_aux``): the metrics, the pair count, the three overflow
     counters, and of the screen radii the largest visible one and the
-    number of visible ones above 20 px, the size-prune threshold."""
+    number of visible ones above 20 px, the size-prune threshold; and
+    the step's span counters (``spans.KEYS``), where it has them."""
     radii = aux["radii"].to(torch.float32)
     vis = aux["visible"]
     out = {"metrics": dict(aux["metrics"])}
@@ -391,6 +406,7 @@ def small_aux(aux: Dict[str, Any]) -> Dict[str, Any]:
                                      "overflow_visible", "overflow_pairs")})
     out["radii_max"] = torch.where(vis, radii, 0.0).amax()
     out["n_r20"] = ((radii > 20.0) & vis).sum(dtype=torch.int32)
+    out.update({k: aux[k] for k in spans.KEYS if k in aux})
     return out
 
 
@@ -420,17 +436,24 @@ def scan_steps(step, state: TrainState, views: Sequence, stage: str,
     replays of the step's CUDA graph (``graphs.replay_steps``, where
     ``marks`` receives a CUDA event recorded before the first step and
     after each), elsewhere a loop of the eager step.  Returns the state
-    and the ``small_aux`` of every step, stacked."""
+    and the ``small_aux`` of every step, stacked; under a profiler the
+    span record keeps the block's span counters."""
+    traced = torch.autograd._profiler_enabled()
     if state.pool.xyz.device.type == "cuda":
         from s3gaussian_tpu_torch.train.graphs import replay_steps
-        return replay_steps(step, state, views, stage, active_sh_degree, hp,
-                            opt, pipe, cfg, spatial_lr_scale, bg, marks)
-    rows = []
-    for view in views:
-        state, aux = step(state, view, stage, active_sh_degree, hp, opt,
-                          pipe, cfg, spatial_lr_scale, bg)
-        rows.append(small_aux(aux))
-    return state, stack_aux(rows)
+        state, aux = replay_steps(step, state, views, stage,
+                                  active_sh_degree, hp, opt, pipe, cfg,
+                                  spatial_lr_scale, bg, marks)
+    else:
+        rows = []
+        for view in views:
+            state, aux = step(state, view, stage, active_sh_degree, hp, opt,
+                              pipe, cfg, spatial_lr_scale, bg)
+            rows.append(small_aux(aux))
+        aux = stack_aux(rows)
+    if traced:
+        spans.keep(aux)
+    return state, aux
 
 
 def train_steps_scan(state: TrainState, cameras: Sequence[Camera],

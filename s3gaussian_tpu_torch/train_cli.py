@@ -89,17 +89,20 @@ from s3gaussian_tpu_torch.train.trainer import (densify_schedule,
                                                 train_step_multicam,
                                                 train_steps_scan,
                                                 train_steps_scan_multicam)
+from s3gaussian_tpu_torch.utils import spans
 
 MID_EVAL_ITER = 30000
 
 
+@spans.host("budget")
 def auto_max_visible(points, cams, capacity: int, growth: float = 2.0,
                      lane: int = 2048, group_by_frame: bool = False) -> int:
     """``--max_visible 0``: ``growth`` x the largest per-camera count of
     init points in the frustum (depth > 0.2, the projector's 1.3·tan(fov/2)
     clamp as its edge), lane-rounded and clamped to the pool capacity.
     With ``group_by_frame`` (rig steps) the count is that of the union
-    of each frame's cameras, as one cull serves the whole rig."""
+    of each frame's cameras, as one cull serves the whole rig.  The
+    host span ``budget``."""
     pts = np.ascontiguousarray(np.asarray(points, np.float32))
     best = 0
     union = {}
@@ -281,6 +284,7 @@ def main(argv=None, device: str = "cuda"):
                                            scene.pool.capacity,
                                            group_by_frame=opt.multicam > 1)
         print(f"auto-sized max_visible = {cfg.max_visible}")
+    print(spans.host_line())
 
     start_stage, start_iter = "coarse", 0
     if args.start_checkpoint:
@@ -455,6 +459,9 @@ def main(argv=None, device: str = "cuda"):
                     entry["probe"] = {k: round(float(v), 8)
                                       for k, v in pr.items()}
                 print(entry)
+                # beside the entry, not in logger.json (train.py's keys)
+                if "span_ns" in aux:
+                    print(spans.step_line(aux))
                 log(entry)
 
             if snapshots and snapshot_due(iteration):

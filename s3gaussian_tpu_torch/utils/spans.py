@@ -1,0 +1,306 @@
+"""The port's span record: where the time of a training step, and of its
+set-up, goes.
+
+**Device spans.**  A train step (``trainer.train_step``,
+``train_step_multicam`` and their data-parallel forms, each wrapped by
+``step``) marks the boundaries of its stages on the device's clock.
+``mark(name)`` writes a stamp into the next slot of a static int64
+buffer: on the card the one-thread kernel ``csrc/span_mark.cu``
+(``%globaltimer``, ns), on the CPU ``time.perf_counter_ns()``.  Each mark
+opens a span named ``name`` and closes the one before it; the step's
+last mark, after the update, only closes.  A mark of the name already
+open is no new mark, and the first mark of a step names the span that
+the step opened, so every kernel from the step's first to the update's
+last falls in exactly one span.  The backward stages are marked by
+``grad_mark``: an identity on a stage's outputs whose backward makes the
+mark once their gradients are complete.  A mark made while a stream
+captures a CUDA graph is a node of the graph and runs again on every
+replay.  Marks are made only inside a step: a render called from
+anywhere else marks nothing.
+
+At the step's end, on the device, ``span_ns`` [len(NAMES)] int64 sums the
+stamp differences of the spans by name (0 for a name the step did not
+mark); beside it ``field_rows``, the rows entering the deformation field
+(the pool's capacity, or the culled working set's size), and
+``visible_rows``, those of them visible in at least one camera of the
+step (both 0 in the coarse stage, which runs no field).  The three are
+top-level keys of the step's aux and of its ``small_aux``.
+
+**The traced window.**  ``trainer.scan_steps`` keeps a block's stacked
+counters (``keep``) when a profiler is on at dispatch, and only then;
+``traced_steps`` copies what was kept to the host when a reader asks.
+
+**Host spans.**  ``host(name)``, a context manager or a decorator,
+records a stretch of host work: its name, start and end on
+``time.perf_counter_ns()`` and the enclosing host span's name as its
+parent.  It also opens a ``torch.profiler.record_function`` range of the
+name, so an exported trace shows the span on its host clock.  Records are
+kept in memory, per process.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+# the stages of a step, in the order a step runs them
+NAMES = ("cull", "field.fwd", "project.fwd", "bin.fwd", "composite.fwd",
+         "loss.fwd", "loss.bwd", "composite.bwd", "bin.bwd", "project.bwd",
+         "field.bwd", "allreduce", "update")
+KEYS = ("span_ns", "field_rows", "visible_rows")   # a step's counters
+MAX_MARKS = 512
+
+
+_stamp_buffers: Dict[str, torch.Tensor] = {}
+_name_matrices: Dict[Tuple[Tuple[int, ...], str], torch.Tensor] = {}
+
+
+def _stamp_buffer(device: torch.device) -> torch.Tensor:
+    """The device's static stamp buffer [MAX_MARKS] int64."""
+    key = str(device)
+    if key not in _stamp_buffers:
+        _stamp_buffers[key] = torch.zeros(MAX_MARKS, dtype=torch.int64,
+                                          device=device)
+    return _stamp_buffers[key]
+
+
+def _name_matrix(ids: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """[len(NAMES), len(ids)] int64: 1 where span j has name ids[j].  Made
+    by fills, no copy from the host; cached on the device for the mark
+    sequence, except when made inside a capture (a captured fill runs
+    only on replay)."""
+    key = (ids, str(device))
+    m = _name_matrices.get(key)
+    if m is None:
+        m = torch.zeros(len(NAMES), len(ids), dtype=torch.int64,
+                        device=device)
+        for j, i in enumerate(ids):
+            m[i, j].fill_(1)
+        if not (device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            _name_matrices[key] = m
+    return m
+
+
+class StepRecord:
+    """The marks of one step: ``names[i]`` names span i, from stamp i to
+    stamp i + 1 of ``stamps``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stamps = _stamp_buffer(device)
+        self.names: List[Optional[str]] = [None]
+        self.counts: Dict[str, Any] = {}
+        self._stamp(0)
+
+    def _stamp(self, slot: int) -> None:
+        if slot >= MAX_MARKS:
+            raise RuntimeError(f"a step of more than {MAX_MARKS} marks")
+        if self.stamps.device.type == "cuda":
+            from s3gaussian_tpu_torch.ops import tile_kernels as tk
+            tk.span_mark(self.stamps, slot)
+        else:
+            self.stamps[slot] = time.perf_counter_ns()
+
+    def mark(self, name: str) -> None:
+        if self.names[-1] is None:
+            self.names[-1] = name
+        elif self.names[-1] != name:
+            self._stamp(len(self.names))
+            self.names.append(name)
+
+    def close(self) -> Dict[str, torch.Tensor]:
+        """The closing mark, then the step's counters, on the device."""
+        k = len(self.names)
+        self._stamp(k)
+        t = self.stamps[:k + 1]
+        ids = tuple(NAMES.index(n) for n in self.names)
+        span_ns = (_name_matrix(ids, self.device) * (t[1:] - t[:-1])).sum(1)
+        vis = self.counts.get("visible")
+        return {"span_ns": span_ns,
+                "field_rows": torch.full((), self.counts.get("field_rows", 0),
+                                         dtype=torch.int32,
+                                         device=self.device),
+                "visible_rows": (vis.sum(dtype=torch.int32)
+                                 if vis is not None else
+                                 torch.zeros((), dtype=torch.int32,
+                                             device=self.device))}
+
+
+_open: Optional[StepRecord] = None
+_last: Optional[StepRecord] = None
+
+
+def step(fn: Callable) -> Callable:
+    """``fn``, a train step ``(state, view, ...) -> (state, aux)``, with
+    its stages marked and the step's counters (``KEYS``) added to its
+    aux.  A step called inside a step marks as part of the outer one."""
+
+    @functools.wraps(fn)
+    def marked(state, *args, **kw):
+        global _open, _last
+        if _open is not None:
+            return fn(state, *args, **kw)
+        rec = StepRecord(state.pool.xyz.device)
+        _open = rec
+        try:
+            state, aux = fn(state, *args, **kw)
+            counters = rec.close()
+        finally:
+            _open = None
+        _last = rec
+        return state, {**aux, **counters}
+
+    return marked
+
+
+def mark(name: str) -> None:
+    """Open the span ``name`` in the step being run; nothing outside a
+    step."""
+    if _open is not None:
+        _open.mark(name)
+
+
+def count(**kw: Any) -> None:
+    """Record the step's ``field_rows`` (an int) or its field rows'
+    ``visible`` mask; nothing outside a step."""
+    if _open is not None:
+        _open.counts.update(kw)
+
+
+class _GradMark(torch.autograd.Function):
+    """The identity, whose backward marks ``name`` in ``rec``."""
+
+    @staticmethod
+    def forward(ctx, rec, name, *xs):
+        ctx.rec, ctx.name = rec, name
+        ctx.set_materialize_grads(False)
+        return xs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.rec.mark(ctx.name)
+        return (None, None) + grads
+
+
+def grad_mark(name: str, *xs: Optional[torch.Tensor]
+              ) -> Tuple[Optional[torch.Tensor], ...]:
+    """``xs`` unchanged; inside a step, through an identity whose backward
+    marks ``name`` when the gradients of all of them are complete (a
+    None passes through)."""
+    if _open is None:
+        return xs
+    where = [i for i, x in enumerate(xs)
+             if x is not None and x.requires_grad]
+    if not where:
+        return xs
+    out = list(xs)
+    for i, y in zip(where, _GradMark.apply(_open, name,
+                                           *[xs[i] for i in where])):
+        out[i] = y
+    return tuple(out)
+
+
+def last_marks() -> Tuple[str, ...]:
+    """The span names of the last step run on the host, in order (a
+    replayed step's are those of its capture)."""
+    return tuple(_last.names) if _last is not None else ()
+
+
+def last_stamps() -> Optional[torch.Tensor]:
+    """The stamps of the last step run on the host, a view of the stamp
+    buffer (the next step overwrites it)."""
+    if _last is None:
+        return None
+    return _last.stamps[:len(_last.names) + 1]
+
+
+_traced: List[Dict[str, torch.Tensor]] = []
+
+
+def keep(aux: Dict[str, Any]) -> None:
+    """Keep a block's stacked counters, on their device."""
+    _traced.append({k: aux[k] for k in KEYS})
+
+
+def traced_steps() -> Optional[Dict[str, torch.Tensor]]:
+    """Every kept step's counters on the host (``span_ns`` [S,
+    len(NAMES)], ``field_rows`` and ``visible_rows`` [S], int64), or None
+    when nothing was kept."""
+    if not _traced:
+        return None
+    return {k: torch.cat([b[k].to("cpu", torch.int64) for b in _traced])
+            for k in KEYS}
+
+
+def step_ms(span_ns: torch.Tensor) -> Dict[str, float]:
+    """A step's milliseconds by span name, the names it marked."""
+    return {n: v / 1e6 for n, v in zip(NAMES, span_ns.tolist()) if v > 0}
+
+
+def step_line(aux: Dict[str, Any]) -> str:
+    """One step's spans and field rows as the CLI prints them beside its
+    logger entry."""
+    ms = ", ".join(f"{n} {v:.3f}" for n, v in step_ms(aux["span_ns"]).items())
+    line = f"spans (ms): {ms}"
+    rows, vis = int(aux["field_rows"]), int(aux["visible_rows"])
+    if rows:
+        line += (f"; visible rows / field rows {vis} / {rows} "
+                 f"({100.0 * vis / rows:.2f}%)")
+    return line
+
+
+@dataclasses.dataclass
+class HostSpan:
+    name: str
+    parent: Optional[str]
+    start_ns: int
+    end_ns: Optional[int] = None
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+_host: List[HostSpan] = []
+_host_open: List[HostSpan] = []
+
+
+@contextlib.contextmanager
+def host(name: str):
+    """A host span around the block (or the decorated function); yields
+    its ``HostSpan``, whose ``ms`` holds once the block has ended."""
+    span = HostSpan(name, _host_open[-1].name if _host_open else None,
+                    time.perf_counter_ns())
+    _host.append(span)
+    _host_open.append(span)
+    try:
+        with torch.profiler.record_function(name):
+            yield span
+    finally:
+        span.end_ns = time.perf_counter_ns()
+        _host_open.pop()
+
+
+def host_spans(name: Optional[str] = None) -> List[HostSpan]:
+    """The ended host spans, in the order they started (those of
+    ``name`` only, when given)."""
+    return [s for s in _host if s.end_ns is not None
+            and (name is None or s.name == name)]
+
+
+def host_line() -> str:
+    """The ended host spans as the CLI prints them after its set-up."""
+    return "host spans (s): " + ", ".join(
+        f"{s.name} {s.ms / 1e3:.3f}" for s in host_spans())
+
+
+def reset() -> None:
+    """Forget every kept block and host span."""
+    _traced.clear()
+    _host.clear()

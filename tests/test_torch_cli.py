@@ -417,7 +417,14 @@ def test_waymo_perf_preset_trains_and_evaluates(tmp_path, capsys):
              "--densification_interval", "2", "--densify_from_iter", "1",
              "--checkpoint_iterations", "99", "--load_h", "64",
              "--load_w", "96"], device="cpu")
-    assert "auto-sized max_visible = " in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "auto-sized max_visible = " in printed
+    # the operator's span lines: set-up once, then each logged step's
+    # spans (the fine steps' first span is the cull) and field rows
+    assert "host spans (s): pool.init " in printed
+    assert printed.count("spans (ms): ") == 6
+    assert printed.count("spans (ms): cull ") == 3
+    assert printed.count("; visible rows / field rows ") == 3
     log = read_log(out)
     assert [(l["stage"], l["step"]) for l in log if "Loss" in l] == [
         (st, i) for st in ("coarse", "fine") for i in (1, 2, 3)]
