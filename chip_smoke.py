@@ -8,9 +8,10 @@ Phases, a few lines of output each (any failure exits non-zero before the
 last line):
 
   1. the card (``nvidia-smi`` name and power limit), capability 9.0;
-  2. build the four CUDA kernels from ``s3gaussian_tpu_torch/csrc`` (the
-     two compositors, the segment sum and the train step's span mark;
-     one ``nvcc`` each, in parallel), with ptxas registers and spills;
+  2. build the five CUDA sources of ``s3gaussian_tpu_torch/csrc`` (the
+     two compositors, the segment sum, the train step's span mark and the
+     hexplane query's forward and backward; one ``nvcc`` each, in
+     parallel), with ptxas registers and spills;
   3. each kernel vs its plain PyTorch version on the sorted pair stream of
      one full-width view and of a high-opacity variant (early exit), with
      the tolerances of ``tests/test_tile_kernels.py``, and both times
@@ -24,6 +25,16 @@ last line):
      gradients, in a fixed order) against its plain version on every call
      of one headline fine step, bit for bit on repeat; the largest call
      timed beside the plain version and ``index_add_``, with its bound;
+  3c. the hexplane kernels (``csrc/hexplane.cu``: the field's query and
+     its backward) against the plain version
+     (``models/hexplane.py::query_hexplane_plain`` on the card) at the
+     headline field and 2,097,152 rows (the pool of the benchmark's
+     cells), bfloat16 planes moved off their init: the features and
+     every plane's gradient bit for bit, the coordinate gradient within
+     atol 1e-5·max|plain|, rtol 1e-4, a backward repeated bit for bit;
+     the forward and the four backward launches timed beside their DRAM
+     bound (the bytes their work requires) and a gather-traffic ceiling,
+     and the query's forward and backward through both paths;
   4. the render path: the headline scene of ``bench.py`` (200,000
      LiDAR-like Gaussians in a 204,800 pool, SH degree 3, default
      deformation field) rendered at 640x960 through ``render()`` for 3 rig
@@ -154,7 +165,10 @@ last line):
      launch a mark of the step's sequence captured and counted a replay
      and a warm-up step, as many ``span_mark`` kernels a replayed step in
      the profile, the replayed steps' spans within 5% of their
-     CUDA-event time; the marks' device ms a step printed.  (e) Two
+     CUDA-event time; the marks' device ms a step printed.  The hexplane
+     kernels of (a) and (b): one ``hexplane_fwd`` and a ``hexplane_bwd``
+     a scale (1 + 4) a step's field evaluation captured, and counted a
+     replay and a warm-up step.  (e) Two
      eager steps from one state give the same bits (loss, parameters,
      moments, statistics): the headline camera and 5b's rig with
      two-class emission here, the Waymo rig with its cull in 6c; a step's
@@ -185,11 +199,11 @@ Then the compositor launches of every phase that drives the port's
 paths (4, 5, 5b, 6c, 7, 7b's replayed sweep, 8, 9, 10, 11, 12a-c, 13,
 14a-c, 12b and 12c summed over both ranks; not the comparisons of 3, 6
 and 6b),
-the segment-sum and span-mark launches of this process's phases from 4
-on but 6 and 6b (the bench's and the rank processes' run in their own
-processes and are not counted), one JSON line with the four kernels
-(their launches over those phases; a span mark's device ms from phase
-13's profiles), the script's wall time, the card line, and last
+the segment-sum, span-mark and hexplane launches of this process's phases
+from 4 on but 6 and 6b (the bench's and the rank processes' run in their
+own processes and are not counted), one JSON line with the kernels
+(each one's launches over those phases; a span mark's device ms from
+phase 13's profiles), the script's wall time, the card line, and last
 ``{"ok": true, "device": {...}}``.
 The port imports no jax; neither does this script.
 """
@@ -296,6 +310,11 @@ SWEEP_FRAME_ATOL = 5e-4
 # phase 3b: the segment-sum kernel against its plain version, which adds
 # in the same order (atol a share of the largest sum)
 SEGSUM_ATOL = 1e-6
+# phase 3c: the hexplane kernels at the benchmark's pool of 2,097,152 rows;
+# the coordinate gradient's tolerance (its channel sums in another order)
+HEX_ROWS, HEX_TIME = 2_097_152, 0.4
+HEX_COORD_ATOL, HEX_COORD_RTOL = 1e-5, 1e-4
+HEX_KERNELS = ("hexplane_fwd", "hexplane_bwd")
 LPIPS_FIXTURE = os.path.join(REPO, "tests", "fixtures",
                              "lpips_alex_fixture.npz")
 # the CLI's device memory after a step may not grow across the fine stage
@@ -412,6 +431,13 @@ def cuda_ms(torch, fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def comp_since(before):
+    """(forward, backward) compositor launches since ``before``, an earlier
+    ``tk.compositor_launches()``."""
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
+    return tuple(n - n0 for n, n0 in zip(tk.compositor_launches(), before))
 
 
 def fine_stream(torch, cam, pool, deform, bg, aabb, cfg,
@@ -587,10 +613,11 @@ def ptxas_summary(log):
     bytes" for each kernel."""
     lines, name, spill = [], None, ""
     for ln in log.splitlines():
-        m = re.search(r"(composite_[a-z]+_kernel|segment_sum_kernelILi\d)",
-                      ln)
+        m = re.search(r"(composite_[a-z]+_kernel|segment_sum_kernelILi\d"
+                      r"|hexplane_[a-z]+_kernelI(?:13__nv_bfloat16|f))", ln)
         if "entry function" in ln and m:
-            name = m[1].replace("ILi", "<") + (">" if "ILi" in m[1] else "")
+            name = (m[1].replace("ILi", "<").replace("I13__nv_", "<")
+                    .replace("If", "<float") + (">" if "I" in m[1] else ""))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = f"{m[1]}+{m[2]} spill bytes"
@@ -741,6 +768,146 @@ def segsum_phase(torch, su, card):
             "library_ms": library_ms, "bound": bnd}
 
 
+def hexplane_phase(torch, su, card):
+    """Phase 3c: the hexplane kernels (``csrc/hexplane.cu``, through
+    ``models/hexplane.py::query_hexplane``) against the plain version
+    (``query_hexplane_plain``, on the card) at HEX_ROWS rows in the
+    headline aabb (a tenth of them beyond it) and the headline field's
+    planes moved off their init, bfloat16 as the default field computes
+    them: features and every plane's gradient bit for bit, the coordinate
+    gradient within HEX_COORD_ATOL·max|plain| + HEX_COORD_RTOL·|plain|,
+    a backward repeated bit for bit.
+
+    Times the forward kernel alone and the four backward launches alone
+    on the planes of ``gridsample.hexplane_layout``; the plain forward
+    (under no_grad, its casts included) beside the kernels' forward with
+    its layout; the plain backward (``autograd.grad`` on a saved plain
+    forward: its segment sums included) beside the kernels' backward
+    through autograd (segment sums, casts and the layout's backward
+    included).  Each kernel's bound is the DRAM traffic its work requires
+    at HBM rate: the coordinates, the cotangent and the outputs once a
+    row, the laid-out planes once; the corner and pair-row gathers, which
+    mostly hit L2, are printed beside it as a gather-traffic ceiling at
+    HBM rate, not a bound.  Returns each kernel's fields."""
+    from s3gaussian_tpu_torch.models import hexplane as hx
+    from s3gaussian_tpu_torch.ops import gridsample as gs
+
+    hp = su.hp
+    n_scales = len(hp.multires)
+    gen = torch.Generator(device=su.aabb.device).manual_seed(3)
+    params = torch.nn.ParameterDict({
+        k: torch.nn.Parameter(p.detach() + 0.1 * torch.randn(
+            p.shape, generator=gen, device=p.device))
+        for k, p in su.deform.grid.items()})
+    lo, hi = su.aabb[1], su.aabb[0]
+    pts = lo + (hi - lo) * (torch.rand((HEX_ROWS, 3), generator=gen,
+                                       device=lo.device) * 1.1 - 0.05)
+    t = torch.tensor(HEX_TIME, device=lo.device)
+    c = params["scale0_plane0"].shape[0]
+    cot = torch.randn((HEX_ROWS, c * n_scales), generator=gen,
+                      device=lo.device)
+    dtype = torch.bfloat16 if hp.grid_compute_bf16 else None
+    wrt = list(params.values())
+
+    def forward(query):
+        p = pts.detach().requires_grad_(True)
+        return p, query(params, p, t, su.aabb, n_scales, dtype)
+
+    def run(query):
+        p, out = forward(query)
+        return (out.detach(),) + torch.autograd.grad(out, [p, *wrt], cot)
+
+    got = run(hx.query_hexplane)
+    again = run(hx.query_hexplane)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "3c: the hexplane kernels not deterministic")
+    del again
+    want = run(hx.query_hexplane_plain)
+    torch.cuda.synchronize()
+    fwd_err = float((got[0] - want[0]).abs().max())
+    check(torch.equal(got[0], want[0]), f"3c: the hexplane features differ "
+          f"from the plain version's by {fwd_err:.3e}")
+    for name, a, b in zip(params.keys(), got[2:], want[2:]):
+        check(torch.equal(a, b), f"3c: the gradient of {name} differs from "
+              f"the plain version's by {float((a - b).abs().max()):.3e}")
+    scale = float(want[1].abs().max())
+    err = (got[1] - want[1]).abs()
+    check(bool((err <= HEX_COORD_ATOL * scale
+                + HEX_COORD_RTOL * want[1].abs()).all()),
+          f"3c: the coordinate gradient differs by {float(err.max()):.3e} "
+          f"(scale {scale:.3e})")
+    coord_err = float(err.max())
+    del got, want, err
+
+    # the kernels alone on the laid-out planes
+    x = hx.normalize_aabb(pts, su.aabb)
+    planes = [params[f"scale{s}_plane{i}"].detach().to(dtype or torch.float32)
+              for s in range(n_scales) for i in range(6)]
+    with torch.no_grad():
+        laid = gs.hexplane_layout(planes, t)
+    dx = torch.empty_like(x)
+
+    def backward():
+        for s in range(n_scales):
+            gs.hexplane_bwd(x, laid[6 * s:6 * s + 6], cot, s, dx, s > 0)
+
+    ms = cuda_ms(torch, lambda: gs.hexplane_fwd(x, laid), reps=10)
+    bwd_ms = cuda_ms(torch, backward, reps=5)
+    with torch.no_grad():
+        query_fwd_ms = cuda_ms(torch, lambda: hx.query_hexplane(
+            params, pts, t, su.aabb, n_scales, dtype), reps=3, warmup=1)
+        plain_fwd_ms = cuda_ms(torch, lambda: hx.query_hexplane_plain(
+            params, pts, t, su.aabb, n_scales, dtype), reps=3, warmup=1)
+
+    def grad_ms(query, reps):
+        p, out = forward(query)
+        return cuda_ms(torch, lambda: torch.autograd.grad(
+            out, [p, *wrt], cot, retain_graph=True), reps=reps, warmup=1)
+
+    query_bwd_ms = grad_ms(hx.query_hexplane, 3)
+    plain_bwd_ms = grad_ms(hx.query_hexplane_plain, 2)
+    e = laid[0].element_size()
+    plane_bytes = sum(p.numel() * p.element_size() for p in laid)
+    gathers = 12 * c * e + 3 * 2 * c * e          # a row, a scale
+    # a row: its coordinates, then the features written
+    fwd_rows = HEX_ROWS * (12 + n_scales * 4 * c)
+    # a row, a scale: coordinates, cotangent; corner and pair cotangents
+    # and their keys, dx (read again from the second scale on)
+    bwd_rows = HEX_ROWS * (n_scales * (12 + 4 * c + 12 * 4 * c + 12 * 4
+                                       + 6 * 4 * c + 3 * 4 + 12)
+                           + (n_scales - 1) * 12)
+    fwd_bound = bound(fwd_rows + plane_bytes, 0)
+    bwd_bound = bound(bwd_rows + plane_bytes, 0)
+    gathered = HEX_ROWS * n_scales * gathers
+    fwd_ceil = bound(fwd_rows + gathered, 0)[0]
+    bwd_ceil = bound(bwd_rows + gathered, 0)[0]
+    print(f"hexplane kernels vs plain: {HEX_ROWS} rows, {n_scales} scales "
+          f"of {c} channels, {dtype or torch.float32} planes "
+          f"({plane_bytes} bytes laid out): features and every plane's "
+          f"gradient bit for bit, coordinate gradient max abs err "
+          f"{coord_err:.3e} (scale {scale:.3e}), the same bits on repeat; "
+          f"forward kernel {ms:.4f} ms, DRAM bound "
+          f"{fwd_rows + plane_bytes} bytes -> {fwd_bound[0]:.4f} ms "
+          f"({fwd_bound[0] / ms:.3f} of it), gather-traffic ceiling "
+          f"{fwd_rows + gathered} bytes at HBM rate -> {fwd_ceil:.4f} ms; "
+          f"backward kernels ({n_scales} launches) {bwd_ms:.4f} ms, DRAM "
+          f"bound {bwd_rows + plane_bytes} bytes -> {bwd_bound[0]:.4f} ms "
+          f"({bwd_bound[0] / bwd_ms:.3f} of it), gather-traffic ceiling "
+          f"{bwd_rows + gathered} bytes -> {bwd_ceil:.4f} ms; the query's "
+          f"forward {query_fwd_ms:.3f} ms (layout included) through the "
+          f"kernels, {plain_fwd_ms:.3f} ms through the plain version; its "
+          f"backward {query_bwd_ms:.3f} ms through the kernels, "
+          f"{plain_bwd_ms:.3f} ms through the plain version (segment sums "
+          f"included in both) ({card})", flush=True)
+    del x, laid, dx, cot, pts, params, wrt
+    torch.cuda.empty_cache()
+    return {"hexplane_fwd": {"ms": ms, "plain_ms": plain_fwd_ms,
+                             "bound": fwd_bound, "max_err": fwd_err},
+            "hexplane_bwd": {"ms": bwd_ms, "plain_ms": plain_bwd_ms,
+                             "bound": bwd_bound, "max_err": coord_err}}
+
+
 def state_to(torch, state, dev):
     """A deep copy of a TrainState on ``dev``."""
     from s3gaussian_tpu_torch.models.pool import GaussianPool, PoolStats
@@ -874,7 +1041,7 @@ def cli_hooks(torch, rec):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             rec["captures"].append((self.warmup_ms, self.capture_ms,
-                                    self.launches))
+                                    tk.compositor_launches(self.captured)))
 
     def save_checkpoint(*a, **k):
         t = time.perf_counter()
@@ -885,10 +1052,10 @@ def cli_hooks(torch, rec):
     def do_evaluation(*a, **k):
         torch.cuda.synchronize()
         if rec["train_launches"] is None:
-            rec["train_launches"] = (tk.launches, tk.bwd_launches)
+            rec["train_launches"] = tk.compositor_launches()
             rec["train_peak"] = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        l0 = (tk.launches, tk.bwd_launches)
+        l0 = tk.compositor_launches()
         t = time.perf_counter()
         res = orig["do_evaluation"](*a, **k)
         torch.cuda.synchronize()
@@ -898,7 +1065,7 @@ def cli_hooks(torch, rec):
             "step": k["step"], "stage": a[9], "results": res,
             "s": time.perf_counter() - t,
             "peak": torch.cuda.max_memory_allocated(),
-            "launches": (tk.launches - l0[0], tk.bwd_launches - l0[1])})
+            "launches": comp_since(l0)})
         return res
 
     def render_pixels(cams, *a, **k):
@@ -1105,12 +1272,12 @@ def sweep_graph_phase(torch, rec, card):
 
             # the replayed sweep
             stats = {}
-            l0 = (tk.launches, tk.bwd_launches)
+            l0 = tk.compositor_launches()
             t0 = time.perf_counter()
             frames = video.render_pixels(cams, pool, deform, pipe, bg, aabb,
                                          sh, stage, cfg, stats=stats)
             sweep_s = time.perf_counter() - t0
-            launches = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+            launches = comp_since(l0)
             want = (len(cams) * 5 + sum(c[3][0] for c in stats["captures"]),
                     0)
             check(launches == want, f"7b: {launches} launches, not {want}")
@@ -1224,7 +1391,7 @@ def eval_only_phase(torch, argv, out, per_view7, card):
     rec = new_record()
     t0 = time.time()
     with cli_hooks(torch, rec):
-        tk.launches = tk.bwd_launches = 0
+        tk.reset("composite_fwd", "composite_bwd")
         state = train_cli.main(argv + ["--eval_only"])
         torch.cuda.synchronize()
         run_s = time.time() - t0
@@ -1378,7 +1545,7 @@ def cli_phase(torch, dev, card):
     held_gib = torch.cuda.memory_allocated() / 2 ** 30
     t0 = time.time()
     with cli_hooks(torch, rec):
-        tk.launches = tk.bwd_launches = 0
+        tk.reset("composite_fwd", "composite_bwd")
         state = train_cli.main(argv)
         torch.cuda.synchronize()
     run_s = time.time() - t0
@@ -1592,10 +1759,10 @@ def small_rig_step(torch, dev, hp, opt, pipe, bg, card):
     for d, st, b in ((dev, s_gpu, bg), ("cpu", s_cpu, bg.cpu())):
         cams = [rig_camera(torch, d, yaw, 0.5, 96, 160, imgs[i], dmaps[i])
                 for i, yaw in enumerate(YAWS_DEG)]
-        l0 = (tk.launches, tk.bwd_launches)
+        l0 = tk.compositor_launches()
         res.append(tr.train_step_multicam(st, cams, "fine", 3, hp, opt, pipe,
                                           cfg, SPATIAL_LR_SCALE, b))
-        got = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+        got = comp_since(l0)
         want = (0, 0) if str(d) == "cpu" else (3, 3)
         check(got == want, f"small rig step on {d}: {got} launches")
     (s_gpu, aux_g), (s_cpu, aux_c) = res
@@ -1627,7 +1794,7 @@ def timed_rig_steps(torch, state, rigs, su, cfg, n_warmup, what):
 
     ms = []
     for i, cams in enumerate(rigs):
-        l0 = (tk.launches, tk.bwd_launches)
+        l0 = tk.compositor_launches()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         state, aux = tr.train_step_multicam(state, cams, "fine", 3, su.hp,
@@ -1641,7 +1808,7 @@ def timed_rig_steps(torch, state, rigs, su, cfg, n_warmup, what):
         check(math.isfinite(loss), f"{what} step {i}: loss {loss}")
         for k in ("overflow_pairs", "overflow_visible"):
             check(int(aux[k]) == 0, f"{what} step {i}: {k} {int(aux[k])}")
-        got = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+        got = comp_since(l0)
         check(got == (len(cams),) * 2, f"{what} step {i}: {got} forward/"
               f"backward launches for {len(cams)} cameras")
     check(int(state.nan_skips) == 0, f"{what}: nan_skips "
@@ -1686,11 +1853,11 @@ def rig_step_phase(torch, su, state, card, single_ms):
             for i in range(RIG_WARMUP + RIG_STEPS + SPLIT_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    l0 = (tk.launches, tk.bwd_launches)
+    l0 = tk.compositor_launches()
     state, aux, ms = timed_rig_steps(torch, state,
                                      rigs[:RIG_WARMUP + RIG_STEPS], su,
                                      su.cfg, RIG_WARMUP, "rig step")
-    launches = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+    launches = comp_since(l0)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     state, split = rig_split(torch, state, rigs[RIG_WARMUP + RIG_STEPS:], su,
                              su.cfg)
@@ -1764,12 +1931,12 @@ def waymo_rig_phase(torch, dev, card):
         n_work = int(work.alive.sum())
     del work, vis0
     torch.cuda.reset_peak_memory_stats()
-    l0 = (tk.launches, tk.bwd_launches)
+    l0 = tk.compositor_launches()
     n_timed = WAYMO_WARMUP + WAYMO_STEPS
     try:
         state, aux, ms = timed_rig_steps(torch, state, rigs[:n_timed], su,
                                          cfg, WAYMO_WARMUP, "waymo rig")
-        launches = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+        launches = comp_since(l0)
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         state, split = rig_split(torch, state, rigs[n_timed:], su, cfg)
         # 13e: the Waymo rig's step repeats bit for bit
@@ -1829,7 +1996,7 @@ def perf_cli_phase(torch, argv7, card):
     t0 = time.time()
     try:
         with cli_hooks(torch, rec), contextlib.redirect_stdout(buf):
-            tk.launches = tk.bwd_launches = 0
+            tk.reset("composite_fwd", "composite_bwd")
             state = train_cli.main(argv)
             torch.cuda.synchronize()
     finally:
@@ -1906,7 +2073,7 @@ def tools_phase(torch, out, rec7, card):
 
     n_views = CLIP_FRAMES * CLIP_CAMS
     buf = io.StringIO()
-    tk.launches = tk.bwd_launches = 0
+    tk.reset("composite_fwd", "composite_bwd")
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         pv = eval_per_view.main(["--model_path", out])
@@ -1918,8 +2085,8 @@ def tools_phase(torch, out, rec7, card):
           f"train-split {sweep_mean}")
     # one render a camera (the rigs, no decomposition), two flow renders;
     # the warm-up renders of the rig's and the flow renders' captures
-    check((tk.launches, tk.bwd_launches) == (3 * n_views + CLIP_CAMS + 1, 0),
-          f"eval_per_view: {(tk.launches, tk.bwd_launches)} launches")
+    check(tk.compositor_launches() == (3 * n_views + CLIP_CAMS + 1, 0),
+          f"eval_per_view: {tk.compositor_launches()} launches")
 
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
@@ -1958,7 +2125,7 @@ def tools_phase(torch, out, rec7, card):
               and all(math.isfinite(v) for v in per_view[k].values())
               for k in ("PSNR", "SSIM")),
           f"metrics tool: per-view entries {[len(v) for v in per_view.values()]}")
-    launches = (tk.launches, tk.bwd_launches)
+    launches = tk.compositor_launches()
     print(f"tools: eval_per_view {pv['n_views']} views in {pv_s:.2f} s, mean "
           f"psnr {pv['mean']:.6f} (the final sweep's train split "
           f"{sweep_mean:.6f}, gate 1e-4), median {pv['median']:.3f} p10 "
@@ -2034,7 +2201,7 @@ def exchange_phase(torch, dev, argv7, out7, rec8, card):
     src = os.path.join(out7, f"chkpnt_fine_{CLI_FINE}")
     npz, imported = os.path.join(root, "phase7.npz"), os.path.join(root,
                                                                    "imported")
-    tk.launches = tk.bwd_launches = 0
+    tk.reset("composite_fwd", "composite_bwd")
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         exchange.export_run(out7, npz, src)
@@ -2044,7 +2211,7 @@ def exchange_phase(torch, dev, argv7, out7, rec8, card):
         state = exchange.import_run(npz, imported)
     torch.cuda.synchronize()
     import_s = time.time() - t0
-    check((tk.launches, tk.bwd_launches) == (0, 0),
+    check(tk.compositor_launches() == (0, 0),
           "15a: the export or import launched a kernel")
     alive = int(state.pool.n_alive)
     del state
@@ -2073,7 +2240,7 @@ def exchange_phase(torch, dev, argv7, out7, rec8, card):
     argv_i = with_flag(argv7, "--model_path", imported)
     rec = new_record()
     with cli_hooks(torch, rec):
-        tk.launches = tk.bwd_launches = 0
+        tk.reset("composite_fwd", "composite_bwd")
         t0 = time.time()
         with contextlib.redirect_stdout(buf):
             state = train_cli.main(argv_i + ["--eval_only"])
@@ -2126,7 +2293,7 @@ def exchange_phase(torch, dev, argv7, out7, rec8, card):
                            "--iterations", str(CLI_FINE + RESUME_STEPS))
         rec = new_record()
         with cli_hooks(torch, rec):
-            tk.launches = tk.bwd_launches = 0
+            tk.reset("composite_fwd", "composite_bwd")
             t0 = time.time()
             with contextlib.redirect_stdout(buf):
                 train_cli.main(argv_r + ["--start_checkpoint", path,
@@ -2135,7 +2302,7 @@ def exchange_phase(torch, dev, argv7, out7, rec8, card):
             run_s = time.time() - t0
         graphs.release()
         key = f"15a resumed from {tag}"
-        launches[key] = (tk.launches, tk.bwd_launches)
+        launches[key] = tk.compositor_launches()
         check(launches[key] == (RESUME_STEPS + len(rec["captures"]),) * 2
               and len(rec["captures"]) == 1,
               f"{key}: {launches[key]} launches, {len(rec['captures'])} "
@@ -2182,12 +2349,12 @@ def exchange_phase(torch, dev, argv7, out7, rec8, card):
                       image_width=int(z["camera/width"]), **maps)
     cam = camera(dev)
     bg = torch.zeros(3, device=dev)
-    tk.launches = tk.bwd_launches = 0
+    tk.reset("composite_fwd", "composite_bwd")
     with torch.no_grad():
         g = render(cam, state.pool, state.deform, pipe, bg, state.aabb, sh,
                    "fine", cfg=cfg)
     torch.cuda.synchronize()
-    render_launches = (tk.launches, tk.bwd_launches)
+    render_launches = tk.compositor_launches()
     check(render_launches == (1, 0), f"15b: {render_launches} launches")
     h, w = cam.image_height, cam.image_width
     bad = torch.zeros(h, w, dtype=torch.bool)
@@ -2240,17 +2407,17 @@ def exchange_phase(torch, dev, argv7, out7, rec8, card):
         z["render/rgb"], device=dev).permute(1, 2, 0).contiguous(),
         depth_map=torch.as_tensor(z["render/depth"], device=dev))
     before = {k: v.clone() for k, v in state.pool.param_dict().items()}
-    tk.launches = tk.bwd_launches = 0
+    tk.reset("composite_fwd", "composite_bwd")
     state, aux = train_steps_scan(state, [target] * FIXTURE_STEPS, "fine", sh,
                                   hp, opt, pipe, cfg, 5.0, bg)
     torch.cuda.synchronize()
     graphs.release()
-    launches["15b render + steps"] = (tk.launches + render_launches[0],
-                                      tk.bwd_launches)
+    fwd, bwd = tk.compositor_launches()
+    launches["15b render + steps"] = (fwd + render_launches[0], bwd)
     loss = aux["metrics"]["loss"].cpu()
     check(bool(torch.isfinite(loss).all()), f"15b: losses {loss.tolist()}")
-    check((tk.launches, tk.bwd_launches) == (FIXTURE_STEPS + 1,) * 2,
-          f"15b: {(tk.launches, tk.bwd_launches)} launches for "
+    check(tk.compositor_launches() == (FIXTURE_STEPS + 1,) * 2,
+          f"15b: {tk.compositor_launches()} launches for "
           f"{FIXTURE_STEPS} steps and a capture's warm-up")
     moved = [k for k, v in state.pool.param_dict().items()
              if not torch.equal(v, before[k])]
@@ -2334,7 +2501,7 @@ def scene_run(torch, argv, tag, card, splits=None, dx=True):
     t0 = time.time()
     try:
         with cli_hooks(torch, rec), contextlib.redirect_stdout(buf):
-            tk.launches = tk.bwd_launches = 0
+            tk.reset("composite_fwd", "composite_bwd")
             state = train_cli.main(argv)
             torch.cuda.synchronize()
     except BaseException:
@@ -2343,7 +2510,7 @@ def scene_run(torch, argv, tag, card, splits=None, dx=True):
     run_s = time.time() - t0
     printed = buf.getvalue()
     graphs.release()
-    launches = rec["train_launches"] or (tk.launches, tk.bwd_launches)
+    launches = rec["train_launches"] or tk.compositor_launches()
     peak = (rec["train_peak"] if rec["train_peak"] is not None
             else torch.cuda.max_memory_allocated())
 
@@ -2746,10 +2913,10 @@ def dp_world_of_one_phase(torch, dev, card):
         args = ("fine", 3, su.hp, su.opt, su.pipe, su.cfg, SPATIAL_LR_SCALE,
                 su.bg)
         s_one, aux_one = tr.train_step(s_one, cam, *args)
-        tk.launches = tk.bwd_launches = 0
+        tk.reset("composite_fwd", "composite_bwd")
         state, aux = dp.parallel_train_step(state, cam, *args)
         torch.cuda.synchronize()
-        launches = (tk.launches, tk.bwd_launches)
+        launches = tk.compositor_launches()
         check(launches == (1, 1), f"12a: {launches} launches for one camera")
         lg, lc, worst, acc_err = compare_step(
             torch, start, state_to(torch, state, "cpu"),
@@ -2886,7 +3053,7 @@ def dp_rank_steps(torch, dev, rank, root):
                         su.gt_depth) for yaw in DP_YAWS]
             for i in range(DP_COARSE + DP_FINE)]
     stages = ["coarse"] * DP_COARSE + ["fine"] * DP_FINE
-    tk.launches = tk.bwd_launches = 0
+    tk.reset("composite_fwd", "composite_bwd")
     with timed_reductions(torch, rep["reduce"]):
         for i, stage in enumerate(stages):
             emulated = i == DP_COARSE and rank == 0
@@ -2904,7 +3071,7 @@ def dp_rank_steps(torch, dev, rank, root):
             state, _ = step(dp.parallel_train_step_multicam, state, rig,
                             "fine", "rig_ms")
     torch.cuda.synchronize()
-    rep["launches"] = (tk.launches, tk.bwd_launches)
+    rep["launches"] = tk.compositor_launches()
     want = DP_COARSE + DP_FINE + DP_RIG_STEPS * len(YAWS_DEG)
     check(rep["launches"] == (want, want),
           f"12b rank {rank}: {rep['launches']} launches, not {want} each")
@@ -2929,11 +3096,11 @@ def dp_rank_cli(torch, dev, rank, root):
 
     with open(os.path.join(root, "argv_12c.json")) as f:
         argv = json.load(f)
-    tk.launches = tk.bwd_launches = 0
+    tk.reset("composite_fwd", "composite_bwd")
     t0 = time.time()
     state = train_cli.main(argv)
     torch.cuda.synchronize()
-    rep = {"launches": (tk.launches, tk.bwd_launches),
+    rep = {"launches": tk.compositor_launches(),
            "s": time.time() - t0, "peak": torch.cuda.max_memory_allocated()}
     rep["checksum"] = dp.replica_checksum_range(state)
     return rep
@@ -3318,7 +3485,7 @@ def graph_phase(torch, su, state, card):
     # rows whose second moment is near 0 (moved by the sign of a
     # gradient) move alike in both
     base = state_to(torch, state, dev)
-    l13 = (tk.launches, tk.bwd_launches)
+    l13 = tk.compositor_launches()
 
     def eager(st, views, step, sync_check):
         ms, rows = [], []
@@ -3344,12 +3511,11 @@ def graph_phase(torch, su, state, card):
 
     def replayed(st, views, scan, n_cams):
         marks = []
-        l0 = (tk.launches, tk.bwd_launches, tk.mark_launches)
+        l0 = dict(tk.launches)
         extra = (n_cams,) if n_cams else ()
         st, aux = scan(st, views, *extra, *args, marks=marks)
         torch.cuda.synchronize()
-        got = (tk.launches - l0[0], tk.bwd_launches - l0[1],
-               tk.mark_launches - l0[2])
+        got = {k: n - l0[k] for k, n in tk.launches.items()}
         ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
         return st, aux, ms, got
 
@@ -3375,16 +3541,21 @@ def graph_phase(torch, su, state, card):
         n = len(views)
         # the capture's mark sequence: its spans and the closing mark
         n_marks = len(spans.last_marks()) + 1
-        check(g.launches == (b, b),
-              f"{what}: the graph captured {g.launches} launches for {b} "
-              f"camera(s)")
-        check(got[:2] == ((n + 1) * b,) * 2,
-              f"{what}: {got[:2]} launches for {n} replays and the "
-              f"capture's warm-up step of {b} camera(s)")
-        check(g.mark_launches == n_marks and got[2] == (n + 1) * n_marks,
-              f"{what}: {g.mark_launches} span marks captured and {got[2]} "
-              f"launched for {n} replays and a warm-up step of "
-              f"{n_marks} marks")
+        cap = g.captured
+        check(tk.compositor_launches(cap) == (b, b),
+              f"{what}: the graph captured {tk.compositor_launches(cap)} "
+              f"launches for {b} camera(s)")
+        check(tk.compositor_launches(got) == ((n + 1) * b,) * 2,
+              f"{what}: {tk.compositor_launches(got)} launches for {n} "
+              f"replays and the capture's warm-up step of {b} camera(s)")
+        # a step's marks; one field evaluation a step: a forward and a
+        # backward a scale
+        for kernel, want in (("span_mark", n_marks), ("hexplane_fwd", 1),
+                             ("hexplane_bwd", len(su.hp.multires))):
+            check(cap[kernel] == want and got[kernel] == (n + 1) * want,
+                  f"{what}: {cap[kernel]} {kernel} launches captured and "
+                  f"{got[kernel]} launched for {n} replays and a warm-up "
+                  f"step of {want}")
         span_ms = aux_g["span_ns"].double().sum(1).cpu() / 1e6
         cover = float(span_ms.sum()) / sum(ms_g)
         check(abs(cover - 1.0) <= SPAN_COVER,
@@ -3420,8 +3591,10 @@ def graph_phase(torch, su, state, card):
               f"{kms_e / med_e:.3f}); peak above the states "
               f"{peak_g:.2f} GiB replayed (warm-up and capture included) / "
               f"{peak_e:.2f} eager, reserved after {res_g:.2f} / "
-              f"{res_e:.2f} GiB; {g.launches[0]} forward / {g.launches[1]} "
-              f"backward launches a replay; {n_marks} span marks a step, "
+              f"{res_e:.2f} GiB; {cap['composite_fwd']} forward / "
+              f"{cap['composite_bwd']} backward launches a replay, "
+              f"{cap['hexplane_fwd']} + {cap['hexplane_bwd']} hexplane "
+              f"launches; {n_marks} span marks a step, "
               f"{mark_ms:.4f} device ms a step in {marks_g:.0f} span_mark "
               f"kernels, the spans' sum {cover:.4f} of the CUDA-event time "
               f"({card})", flush=True)
@@ -3456,7 +3629,7 @@ def graph_phase(torch, su, state, card):
           f"13 (c): densify {info}")
     s_e = state_to(torch, d_state, dev)
     start = {k: v.cpu() for k, v in snapshot(torch, d_state).items()}
-    l0 = (tk.launches, tk.bwd_launches)
+    l0 = tk.compositor_launches()
     s_g2, aux_g = tr.train_steps_scan(d_state, singles[GRAPH_SPLIT:
                                                        2 * GRAPH_SPLIT],
                                       *args)
@@ -3465,7 +3638,7 @@ def graph_phase(torch, su, state, card):
           "13 (c): the block after the densify captured anew")
     check({k: v.data_ptr() for k, v in state_tensors(s_g2).items()}
           == statics, "13 (c): the static state moved")
-    got = (tk.launches - l0[0], tk.bwd_launches - l0[1])
+    got = comp_since(l0)
     check(got == (GRAPH_SPLIT,) * 2, f"13 (c): {got} launches for "
           f"{GRAPH_SPLIT} replays")
     s_e, aux_e, _ = eager(s_e, singles[GRAPH_SPLIT:2 * GRAPH_SPLIT],
@@ -3500,8 +3673,9 @@ def graph_phase(torch, su, state, card):
         (s_dp, aux_dp, ms_dp, got), peak_dp, _ = measured(lambda: replayed(
             state_to(torch, base, dev), views, dp.parallel_train_steps_scan,
             0))
-        check(got[:2] == (GRAPH_DP + 1,) * 2,
-              f"13 (d): {got[:2]} launches for {GRAPH_DP} replays and a "
+        got = tk.compositor_launches(got)
+        check(got == (GRAPH_DP + 1,) * 2,
+              f"13 (d): {got} launches for {GRAPH_DP} replays and a "
               f"warm-up")
         g = graphs.current()
         graphs.release()
@@ -3517,7 +3691,7 @@ def graph_phase(torch, su, state, card):
           f"{g.capture_ms:.1f} ms; ms a step (CUDA events, median) DP "
           f"{np.median(ms_dp):.3f} vs {np.median(ms_one):.3f}; peak above "
           f"the states {peak_dp:.2f} GiB ({card})", flush=True)
-    launches = (tk.launches - l13[0], tk.bwd_launches - l13[1])
+    launches = comp_since(l13)
 
     # (e) two eager steps from one state give the same bits: the single
     # camera, and 5b's rig with two-class emission (6c runs the Waymo rig)
@@ -3696,6 +3870,8 @@ def main(only=None) -> int:
 
     # 3b. the segment-sum kernel vs plain on a step's calls
     seg = segsum_phase(torch, su, card)
+    # 3c. the hexplane kernels vs plain at the benchmark's pool size
+    hexk = hexplane_phase(torch, su, card)
 
     # 4. the render path through the user entry points, launches counted
     # (the segment-sum launches from here on, but for the comparisons of
@@ -3703,7 +3879,7 @@ def main(only=None) -> int:
     rasterize_calls = 0
     frame_ms = []
     renders = []
-    tk.launches = tk.bwd_launches = tk.seg_launches = tk.mark_launches = 0
+    tk.reset()
     with torch.no_grad():
         for cam in cams:
             torch.cuda.synchronize()
@@ -3733,7 +3909,7 @@ def main(only=None) -> int:
     rasterize_calls += 5 * len(cams) + sum(c[3][0]
                                            for c in stats4["captures"])
     torch.cuda.synchronize()
-    render_launches = (tk.launches, tk.bwd_launches)
+    render_launches = tk.compositor_launches()
     check(render_launches == (rasterize_calls, 0),
           f"{render_launches} kernel launches for {rasterize_calls} "
           f"rasterize calls without gradient")
@@ -3771,7 +3947,7 @@ def main(only=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
-    tk.launches = tk.bwd_launches = 0
+    tk.reset("composite_fwd", "composite_bwd")
     for cam, stage in zip(train_cams, stages):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
@@ -3785,7 +3961,7 @@ def main(only=None) -> int:
         check(int(aux["overflow_pairs"]) == 0,
               f"{stage} step: {int(aux['overflow_pairs'])} pairs beyond the "
               f"budget")
-    train_launches = (tk.launches, tk.bwd_launches)
+    train_launches = tk.compositor_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_steps = len(stages)
     check(train_launches == (n_steps, n_steps),
@@ -3847,8 +4023,9 @@ def main(only=None) -> int:
     graph13, marks13 = graph_phase(torch, su, state, card)
     del state
 
-    seg_compare = tk.seg_launches
-    mark_compare = tk.mark_launches
+    seg_compare = tk.launches["segment_sum"]
+    mark_compare = tk.launches["span_mark"]
+    hex_compare = {k: tk.launches[k] for k in HEX_KERNELS}
     # 6. small scene: GPU vs CPU (plain compositors): render + train step,
     # with the field made anew from its seed, then the renders with the
     # field phase 5 trained in place
@@ -3965,8 +4142,9 @@ def main(only=None) -> int:
     # CPU, from one mid-training state
     small_rig_step(torch, dev, hp, opt, pipe, bg, card)
 
-    seg_compare = tk.seg_launches - seg_compare
-    mark_compare = tk.mark_launches - mark_compare
+    seg_compare = tk.launches["segment_sum"] - seg_compare
+    mark_compare = tk.launches["span_mark"] - mark_compare
+    hex_compare = {k: tk.launches[k] - n for k, n in hex_compare.items()}
     del su, pool, deform, cams, small_pool, cpu_pool, s_gpu, s_cpu
     torch.cuda.empty_cache()
 
@@ -4043,12 +4221,17 @@ def main(only=None) -> int:
           "a run of phase 15 launched no kernel")
     # this process's segment sums over the path (the bench's and the rank
     # processes' are not counted here)
-    seg_main = tk.seg_launches - seg_compare
+    seg_main = tk.launches["segment_sum"] - seg_compare
     check(seg_main > 0, "the path launched no segment-sum kernel")
-    mark_main = tk.mark_launches - mark_compare
+    mark_main = tk.launches["span_mark"] - mark_compare
     check(mark_main > 0, "the path launched no span-mark kernel")
+    hex_main = {k: tk.launches[k] - n for k, n in hex_compare.items()}
+    check(all(hex_main.values()), f"the path's hexplane launches "
+          f"{hex_main}: a kernel never launched")
     print(f"segment-sum launches over this process's phases of the path: "
-          f"{seg_main}; span-mark launches: {mark_main}", flush=True)
+          f"{seg_main}; span-mark launches: {mark_main}; hexplane launches: "
+          f"forward {hex_main['hexplane_fwd']}, backward "
+          f"{hex_main['hexplane_bwd']}", flush=True)
     print(f"smoke run: {time.time() - T_START:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -4098,6 +4281,22 @@ def main(only=None) -> int:
         "bound_by": "launch",
         "library_ms": None,
     })
+    for name in HEX_KERNELS:
+        d = hexk[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "s3gaussian_tpu_torch/csrc/hexplane.cu",
+            # no Pallas kernel: the hexplane query XLA fuses, and its VJP
+            "replaces": "s3gaussian_tpu/models/hexplane.py:69",
+            "launches": hex_main[name],
+            "max_abs_err": d["max_err"],
+            "ms": d["ms"],
+            "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound"][0],
+            "bound_by": d["bound"][1],
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -337,7 +337,7 @@ def run_workload(spec: Spec, n_steps: int, h: int = H, w: int = W,
         build_s = round(time.perf_counter() - t0, 3)
         torch.cuda.reset_peak_memory_stats(dev)
     wl = Workload(spec, h, w, dev)
-    l0 = (tk.launches, tk.bwd_launches)
+    l0 = tk.compositor_launches()
     scan_n = max(int(os.environ.get("BENCH_SCAN", "10")), 1)
     n_blocks = max(n_steps // scan_n, 1)
 
@@ -347,11 +347,11 @@ def run_workload(spec: Spec, n_steps: int, h: int = H, w: int = W,
     warmup_s = time.perf_counter() - t0
     capture_ms = graphs.current().capture_ms if on_card else None
 
-    lt = (tk.launches, tk.bwd_launches)
+    lt = tk.compositor_launches()
     aux, seconds, ms = _timed_blocks(wl, n_blocks, scan_n)
     total = n_blocks * scan_n
-    per_step = [(tk.launches - lt[0]) / total,
-                (tk.bwd_launches - lt[1]) / total]
+    per_step = [(n - n0) / total
+                for n, n0 in zip(tk.compositor_launches(), lt)]
     it_per_s = total / seconds
     overflow_pairs = int(aux["overflow_pairs"])
     if overflow_pairs != 0:
@@ -390,7 +390,8 @@ def run_workload(spec: Spec, n_steps: int, h: int = H, w: int = W,
             float(wl.render(1e-6 * i).reshape(-1)[:4].sum())
         out["render_fps"] = round(total / (time.perf_counter() - t0), 3)
         graphs.release()
-    out["launches"] = [tk.launches - l0[0], tk.bwd_launches - l0[1]]
+    out["launches"] = [n - n0 for n, n0 in zip(tk.compositor_launches(),
+                                                l0)]
     out["launches_per_step"] = per_step
     return out
 

@@ -42,6 +42,7 @@ from s3gaussian_tpu_torch.eval.visualization import (scene_flow_to_rgb, to8b,
                                                      visualize_depth)
 from s3gaussian_tpu_torch.models.deformation import DeformationField
 from s3gaussian_tpu_torch.models.pool import GaussianPool
+from s3gaussian_tpu_torch.ops import tile_kernels as tk
 from s3gaussian_tpu_torch.render.renderer import render, render_multicam
 from s3gaussian_tpu_torch.train import graphs
 from s3gaussian_tpu_torch.train.checkpoints import save_ply_split
@@ -263,7 +264,7 @@ def render_pixels(cameras: Sequence[Camera], pool: GaussianPool,
             g = graphs.render_graph(key, fn, cams, inputs)
             if g is not held:
                 st["captures"].append((what, g.warmup_ms, g.capture_ms,
-                                       g.launches))
+                                       tk.compositor_launches(g.captured)))
             res = g.run(cams, **inputs)
             st["replays"] += 1
         else:

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from s3gaussian_tpu_torch.ops.gridsample import (grid_sample_2d,
+                                                 hexplane_query,
                                                  sample_time_plane)
 
 COO_COMBS = tuple(itertools.combinations(range(4), 2))
@@ -59,9 +60,27 @@ def query_hexplane(params: nn.ParameterDict, pts: torch.Tensor,
     """pts [N,3] world, t [N,1] or a 0-d tensor in [0,1] -> [N, out_dim·n_scales].
 
     ``compute_dtype`` (e.g. bfloat16) casts the plane values before the
-    gathers; coordinates and weights stay float32.  A 0-d ``t`` (one time
-    for every point, what rendering always passes) takes the scalar-row
-    path for the three spatiotemporal planes."""
+    gathers; coordinates and weights stay float32.  CUDA tensors go
+    through the kernels of ``csrc/hexplane.cu``
+    (``gridsample.hexplane_query``: the plain version's bits; a 0-d ``t``
+    only), CPU tensors through the plain version,
+    ``query_hexplane_plain``."""
+    if pts.device.type != "cuda":
+        return query_hexplane_plain(params, pts, t, aabb, n_scales,
+                                    compute_dtype)
+    return hexplane_query(normalize_aabb(pts, aabb), t, [
+        params[f"scale{s}_plane{i}"] if compute_dtype is None
+        else params[f"scale{s}_plane{i}"].to(compute_dtype)
+        for s in range(n_scales) for i in range(len(COO_COMBS))])
+
+
+def query_hexplane_plain(params: nn.ParameterDict, pts: torch.Tensor,
+                         t: torch.Tensor, aabb: torch.Tensor, n_scales: int,
+                         compute_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """``query_hexplane`` in plain PyTorch ops on any device.  A 0-d ``t``
+    (one time for every point, what rendering always passes) takes the
+    scalar-row path for the three spatiotemporal planes."""
     t_scalar = t.dim() == 0
     x = normalize_aabb(pts, aabb)
     feats = []

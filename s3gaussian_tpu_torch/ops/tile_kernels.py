@@ -3,7 +3,8 @@ function around them (port of ``s3gaussian_tpu/ops/tile_kernels.py``:
 ``composite_fwd_pallas`` → ``csrc/composite_fwd.cu``,
 ``composite_bwd_pallas`` → ``csrc/composite_bwd.cu``), and the build and
 launch counts of the port's compute kernels (also ``csrc/segment_sum.cu``,
-wrapped by ``ops/segsum.py``), and the launch of the step's stage mark
+wrapped by ``ops/segsum.py``, and ``csrc/hexplane.cu``, wrapped by
+``ops/gridsample.py``), and the launch of the step's stage mark
 ``csrc/span_mark.cu`` (``utils/spans.py``).
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
@@ -26,7 +27,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
 
@@ -38,27 +39,24 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"composite_fwd": _PKG / "csrc" / "composite_fwd.cu",
            "composite_bwd": _PKG / "csrc" / "composite_bwd.cu",
            "segment_sum": _PKG / "csrc" / "segment_sum.cu",
-           "span_mark": _PKG / "csrc" / "span_mark.cu"}
+           "span_mark": _PKG / "csrc" / "span_mark.cu",
+           "hexplane": _PKG / "csrc" / "hexplane.cu"}
 # the C entry point of each library, where it is not the source's name
-ENTRY = {"span_mark": "span_mark_at"}
+ENTRY = {"span_mark": "span_mark_at", "hexplane": "hexplane_fwd"}
 HEADER = _PKG / "csrc" / "composite_common.cuh"   # the compositors' own
 BUILD_DIR = _PKG.parent / "build" / "s3gaussian_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches made by composite_fwd / composite_bwd /
-# segsum.sum_ranges / span_mark (CPU calls do not count).  A launch made
+# kernel launches by kernel name (CPU calls do not count).  A launch made
 # while the stream captures a CUDA graph runs only when the graph is
 # replayed: it goes to ``captured`` instead, and the graph's owner
 # (train/graphs.py) adds what it captured once per replay through
-# ``count_replay``
-launches = 0
-bwd_launches = 0
-seg_launches = 0
-mark_launches = 0
-captured = [0, 0]           # forward, backward
-seg_captured = 0
-mark_captured = 0
+# ``count_replay``.  Both tables are updated in place, never rebound.
+KERNELS = ("composite_fwd", "composite_bwd", "segment_sum", "span_mark",
+           "hexplane_fwd", "hexplane_bwd")
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+captured: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # The launch geometry both kernels are compiled for
@@ -174,6 +172,15 @@ def _load(name: str) -> ctypes.CDLL:
         dims = [i32] * 6
         if name == "span_mark":     # stamps, slot, stream
             fn.argtypes = [ptr, i32, ptr]
+        elif name == "hexplane":
+            ptrs, ints = ctypes.POINTER(ptr), ctypes.POINTER(i32)
+            # x, n, n_scales, c, bf16, planes, dims, out, stream
+            fn.argtypes = [ptr, i64, i32, i32, i32, ptrs, ints, ptr, ptr]
+            # x, n, c, bf16, planes, dims, g, g_stride, g_offset, outs,
+            # dx, accumulate, stream
+            lib.hexplane_bwd.argtypes = [ptr, i64, i32, i32, ptrs, ints, ptr,
+                                         i32, i32, ptrs, ptr, i32, ptr]
+            lib.hexplane_bwd.restype = ctypes.c_int
         elif name == "composite_fwd":
             fn.argtypes = [ptr, i64, ptr, ptr, *dims, ptr]
         elif name == "composite_bwd":
@@ -185,43 +192,36 @@ def _load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def _count(kind: int) -> None:
-    """One launch of the forward (0), backward (1), segment-sum (2) or
-    span-mark (3) kernel."""
-    global launches, bwd_launches, seg_launches, seg_captured
-    global mark_launches, mark_captured
-    if torch.cuda.is_current_stream_capturing():
-        if kind == 2:
-            seg_captured += 1
-        elif kind == 3:
-            mark_captured += 1
-        else:
-            captured[kind] += 1
-    elif kind == 0:
-        launches += 1
-    elif kind == 1:
-        bwd_launches += 1
-    elif kind == 2:
-        seg_launches += 1
-    else:
-        mark_launches += 1
+def _count(kernel: str) -> None:
+    """One launch of ``kernel`` (a name of KERNELS)."""
+    table = captured if torch.cuda.is_current_stream_capturing() else launches
+    table[kernel] += 1
 
 
-def count_replay(fwd: int, bwd: int, seg: int = 0, marks: int = 0) -> None:
-    """A replay of a CUDA graph that captured ``fwd`` forward, ``bwd``
-    backward, ``seg`` segment-sum and ``marks`` span-mark launches
+def count_replay(counts: Mapping[str, int]) -> None:
+    """A replay of a CUDA graph that captured ``counts`` launches by kernel
     launched them again."""
-    global launches, bwd_launches, seg_launches, mark_launches
-    launches += fwd
-    bwd_launches += bwd
-    seg_launches += seg
-    mark_launches += marks
+    for kernel, n in counts.items():
+        launches[kernel] += n
+
+
+def reset(*kernels: str) -> None:
+    """Zero the launch counts of ``kernels`` (of every kernel if none is
+    named)."""
+    for kernel in kernels or KERNELS:
+        launches[kernel] = 0
+
+
+def compositor_launches(counts: Mapping[str, int] = launches
+                        ) -> Tuple[int, int]:
+    """The (forward, backward) compositor launches of ``counts``."""
+    return counts["composite_fwd"], counts["composite_bwd"]
 
 
 def span_mark(stamps: torch.Tensor, slot: int) -> None:
     """Launch ``csrc/span_mark.cu`` on the current stream: the device's
-    clock (ns) into ``stamps[slot]``, an int64 CUDA tensor; counted in
-    ``mark_launches``."""
+    clock (ns) into ``stamps[slot]``, an int64 CUDA tensor; counted under
+    ``"span_mark"``."""
     lib = _load("span_mark")
     with torch.cuda.device(stamps.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -229,7 +229,7 @@ def span_mark(stamps: torch.Tensor, slot: int) -> None:
     if err != 0:
         raise RuntimeError(f"span_mark kernel launch failed: CUDA error "
                            f"{err}")
-    _count(3)
+    _count("span_mark")
 
 
 def _check_stream(name: str, pair_feat: torch.Tensor,
@@ -286,7 +286,7 @@ def composite_fwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error "
                            f"{err}")
-    _count(0)
+    _count("composite_fwd")
     return out
 
 
@@ -326,7 +326,7 @@ def composite_bwd(pair_feat: torch.Tensor, tile_starts: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
                            f"{err}")
-    _count(1)
+    _count("composite_bwd")
     return grads
 
 

@@ -39,8 +39,8 @@ failed capture raises.  Only one graph is held at a time: a new key
 frees the old graph and its private memory pool (the stage only
 advances), and ``release`` frees it before the evaluation sweep.
 
-The kernel launches made inside a capture (compositors, segment sums,
-span marks) are counted once per replay
+The kernel launches made inside a capture (by kernel name: compositors,
+segment sums, span marks, the hexplane's) are counted once per replay
 (``ops/tile_kernels.py::count_replay``).  Data-parallel steps capture
 their all-reduces, which NCCL supports and gloo does not.
 """
@@ -111,10 +111,9 @@ def capture(dev: torch.device, warmup: Callable[[], Any],
     """``body`` captured as one CUDA graph on the device's side stream, after
     ``warmup`` ran there once (lazy initialisations: library handles and
     workspaces, constant caches, an NCCL communicator).  Returns (graph,
-    body's outputs, warm-up ms, capture ms, compositor launches
-    captured (forward, backward), segment-sum and span-mark launches
-    captured); the two times are the host spans ``graph.warmup`` and
-    ``graph.capture`` (``utils/spans.py``)."""
+    body's outputs, warm-up ms, capture ms, the kernel launches captured
+    by kernel name); the two times are the host spans ``graph.warmup``
+    and ``graph.capture`` (``utils/spans.py``)."""
     # a collective's watchdog queries events from its own thread while
     # the capture runs: only this thread's calls must be capture-safe
     mode = ("thread_local" if torch.distributed.is_available()
@@ -126,14 +125,13 @@ def capture(dev: torch.device, warmup: Callable[[], Any],
             warmup()
         side.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = list(tk.captured) + [tk.seg_captured, tk.mark_captured]
+    before = dict(tk.captured)
     with spans.host("graph.capture") as cap:
         with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
             out = body()
         torch.cuda.synchronize(dev)
     return (graph, out, warm.ms, cap.ms,
-            (tk.captured[0] - before[0], tk.captured[1] - before[1]),
-            tk.seg_captured - before[2], tk.mark_captured - before[3])
+            {k: n - before[k] for k, n in tk.captured.items()})
 
 
 def static_cameras(cams: Sequence[Camera], dev: torch.device
@@ -189,8 +187,7 @@ class StepGraph:
             body(scratch)
 
         (self.graph, self.out, self.warmup_ms, self.capture_ms,
-         self.launches, self.seg_launches, self.mark_launches) = capture(
-            dev, warmup, lambda: body(state))
+         self.captured) = capture(dev, warmup, lambda: body(state))
 
     def load(self, state: TrainState) -> TrainState:
         """``load_state`` into this graph's static state."""
@@ -208,8 +205,7 @@ class StepGraph:
         self.bg.copy_(bg, non_blocking=True)
         self.graph.replay()
         self.replays += 1
-        tk.count_replay(*self.launches, self.seg_launches,
-                        self.mark_launches)
+        tk.count_replay(self.captured)
         return self.out
 
 
@@ -256,8 +252,7 @@ class RenderGraph:
             return fn(self.cams, **self.inputs)
 
         (self.graph, self.out, self.warmup_ms, self.capture_ms,
-         self.launches, self.seg_launches, self.mark_launches) = capture(
-             dev, body, body)
+         self.captured) = capture(dev, body, body)
 
     def run(self, cams: Sequence[Camera],
             **inputs: torch.Tensor) -> Dict[str, Any]:
@@ -266,8 +261,7 @@ class RenderGraph:
             self.inputs[k].copy_(v, non_blocking=True)
         self.graph.replay()
         self.replays += 1
-        tk.count_replay(*self.launches, self.seg_launches,
-                        self.mark_launches)
+        tk.count_replay(self.captured)
         return self.out
 
 

@@ -67,7 +67,8 @@ def one_level(keys, vals, n_rows):
 def index_put(keys, vals, n_rows):
     out = torch.zeros((n_rows, vals.shape[1]), dtype=torch.float32,
                       device=vals.device)
-    return out.index_put_((keys,), vals.to(torch.float32), accumulate=True)
+    return out.index_put_((keys.long(),), vals.to(torch.float32),
+                          accumulate=True)
 
 
 def index_add(keys, vals, n_rows):

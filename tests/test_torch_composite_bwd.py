@@ -88,9 +88,9 @@ def test_backward_wrapper_on_cpu_takes_plain_path():
     feat_t, starts_t = torch_pair(pair_feat, starts)
     out = ttk.composite_fwd(feat_t, starts_t, gx, gy, TILE, TILE)
     dout = torch.from_numpy(_cotangent(out, 1))
-    before = ttk.bwd_launches
+    before = ttk.launches["composite_bwd"]
     got = ttk.composite_bwd(feat_t, starts_t, out, dout, gx, gy, TILE, TILE)
-    assert ttk.bwd_launches == before          # no kernel ran
+    assert ttk.launches["composite_bwd"] == before    # no kernel ran
     torch.testing.assert_close(
         got, tcomp.composite_tiles_bwd_torch(feat_t, starts_t, out, dout, gx,
                                              gy, TILE, TILE), rtol=0, atol=0)

@@ -77,10 +77,10 @@ def sorted_stream(dev, seed, n, opacity_range, tile):
 def test_cuda_kernel_matches_plain(cuda_device, seed, n, opacity_range, tile):
     stream, starts, gx, gy = sorted_stream(cuda_device, seed, n,
                                            opacity_range, tile)
-    before = tk.launches
+    before = tk.launches["composite_fwd"]
     got = tk.composite_fwd(stream, starts, gx, gy, tile, tile)
     torch.cuda.synchronize()
-    assert tk.launches == before + 1
+    assert tk.launches["composite_fwd"] == before + 1
     want = composite_tiles_torch(stream, starts, gx, gy, tile, tile)
     got, want = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_allclose(got[:, 0:4], want[:, 0:4], atol=5e-4,
@@ -107,10 +107,10 @@ def test_cuda_backward_kernel_matches_plain(cuda_device, seed, n,
     gen = torch.Generator(device=cuda_device).manual_seed(seed)
     dout = torch.randn(out.shape, generator=gen, device=cuda_device)
     dout[:, 5:] = 0.0
-    before = tk.bwd_launches
+    before = tk.launches["composite_bwd"]
     got = tk.composite_bwd(stream, starts, out, dout, gx, gy, tile, tile)
     torch.cuda.synchronize()
-    assert tk.bwd_launches == before + 1
+    assert tk.launches["composite_bwd"] == before + 1
     want = composite_tiles_bwd_torch(stream, starts, out, dout, gx, gy, tile,
                                      tile)
     n_pairs = int(starts[-1])
@@ -135,12 +135,12 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         tk.composite_fwd(stream[:, ::2], starts, gx, gy, 16, 16)
     with pytest.raises(ValueError):
         tk.composite_fwd(stream, starts.cpu(), gx, gy, 16, 16)
-    before = tk.launches
+    before = tk.launches["composite_fwd"]
     with pytest.raises(ValueError):        # 48x48 = 2,304 threads per block
         tk.composite_fwd(stream, starts[:3], 2, 1, 48, 48)
-    assert tk.launches == before
+    assert tk.launches["composite_fwd"] == before
     out = tk.composite_fwd(stream, starts, gx, gy, 16, 16)
-    before = tk.bwd_launches
+    before = tk.launches["composite_bwd"]
     with pytest.raises(TypeError):
         tk.composite_bwd(stream, starts, out, out.double(), gx, gy, 16, 16)
     with pytest.raises(ValueError):
@@ -148,7 +148,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                          .contiguous().transpose(1, 2), gx, gy, 16, 16)
     with pytest.raises(ValueError):
         tk.composite_bwd(stream, starts, out, out.cpu(), gx, gy, 16, 16)
-    assert tk.bwd_launches == before
+    assert tk.launches["composite_bwd"] == before
 
 
 def synthetic_stream(dev, seed, counts, grid, tile_x, tile_y, opacity_range,
@@ -528,10 +528,10 @@ def test_cuda_render_multicam_equals_per_camera_renders(cuda_device):
     args = (pool, deform, PipelineParams(), torch.zeros(3, device=cuda_device),
             torch.tensor([[6.0, 6.0, 9.0], [-6.0, -6.0, 0.0]],
                          device=cuda_device), 3)
-    before = tk.launches
+    before = tk.launches["composite_fwd"]
     with torch.no_grad():
         rig = render_multicam(cams, *args, return_decomposition=True, cfg=cfg)
-        assert tk.launches - before == 9
+        assert tk.launches["composite_fwd"] - before == 9
         for b, cam in enumerate(cams):
             one = render(cam, *args, return_decomposition=True, cfg=cfg)
             for k in ("render", "depth", "render_d", "render_s"):
@@ -603,14 +603,14 @@ def test_cuda_two_class_rasterize_matches_cpu(cuda_device, budget):
         means, scales, quats, opac, colors = leaves
         settings = RasterSettings(H, W, tan, tan, t(np.zeros(3)), 1.0,
                                   t(view), t(full), 0, t(np.zeros(3)))
-        before = tk.bwd_launches
+        before = tk.launches["composite_bwd"]
         color, radii, depth, aux = rasterize(settings, means, opac,
                                              scales=scales, rotations=quats,
                                              colors_precomp=colors, cfg=cfg)
         loss = ((color - t(tgt)) ** 2).sum() + 0.1 * depth.sum()
         grads = torch.autograd.grad(loss, leaves)
         if str(dev) != "cpu":
-            assert tk.bwd_launches == before + 1
+            assert tk.launches["composite_bwd"] == before + 1
         res[str(dev)] = ([x.detach().cpu().numpy() for x in
                           (color, depth, radii) + grads],
                          {k: int(aux[k]) for k in (
@@ -677,14 +677,14 @@ def test_cuda_culled_rig_step_matches_cpu(cuda_device):
             cams.append(make_camera(R, np.zeros(3), 1.0, 0.8, W, H, time=0.4,
                                     image=images[b], depth_map=depths[b],
                                     device=dev))
-        launches = (tk.launches, tk.bwd_launches)
+        launches = tk.compositor_launches()
         state, aux = train_step_multicam(state, cams, "fine", 3, hp,
                                          OptimizationParams(),
                                          PipelineParams(), cfg, 5.0,
                                          torch.zeros(3, device=dev))
         if str(dev) != "cpu":
-            assert (tk.launches - launches[0],
-                    tk.bwd_launches - launches[1]) == (3, 3)
+            assert (tk.launches["composite_fwd"] - launches[0],
+                    tk.launches["composite_bwd"] - launches[1]) == (3, 3)
         out[str(dev)] = (aux, {k: v.detach().cpu() - before[k] for k, v in
                                state.pool.param_dict().items()})
     (want_aux, want), (got_aux, got) = out["cpu"], out[str(cuda_device)]
@@ -762,12 +762,12 @@ def test_cuda_nccl_world_of_one_step_matches_train_step(cuda_device,
             cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.8, W, H,
                               time=0.4, image=image, depth_map=depth,
                               device=cuda_device)
-            launches = (tk.launches, tk.bwd_launches)
+            launches = tk.compositor_launches()
             state, aux = step(state, cam, "fine", 3, hp,
                               OptimizationParams(), PipelineParams(), cfg,
                               5.0, torch.zeros(3, device=cuda_device))
-            assert (tk.launches - launches[0],
-                    tk.bwd_launches - launches[1]) == (1, 1)
+            assert (tk.launches["composite_fwd"] - launches[0],
+                    tk.launches["composite_bwd"] - launches[1]) == (1, 1)
             out[name] = (aux, {k: v.detach().cpu() - before[k] for k, v in
                                state.pool.param_dict().items()})
     finally:
@@ -896,7 +896,7 @@ def test_cuda_block_of_replays_matches_eager_steps(cuda_device, rig):
         losses.append(aux["metrics"]["loss"].item())
     eager_vis = aux["visible"].cpu()
     graphs.release()
-    launches = (tk.launches, tk.bwd_launches)
+    launches = tk.compositor_launches()
     try:
         if rig:
             got, gaux = tr.train_steps_scan_multicam(state, views, 3, "fine",
@@ -906,10 +906,10 @@ def test_cuda_block_of_replays_matches_eager_steps(cuda_device, rig):
         torch.cuda.synchronize()
         g = graphs.current()
         assert got is state and g.state is state and g.replays == 5
-        assert g.launches == (b, b)
+        assert tk.compositor_launches(g.captured) == (b, b)
         # 5 replays and the capture's warm-up step
-        assert (tk.launches - launches[0],
-                tk.bwd_launches - launches[1]) == (6 * b, 6 * b)
+        assert (tk.launches["composite_fwd"] - launches[0],
+                tk.launches["composite_bwd"] - launches[1]) == (6 * b, 6 * b)
         # the last replay's visibility, in the graph's own outputs
         assert int((g.out["visible"].cpu() != eager_vis).sum()) <= max(
             1, eager_vis.numel() // 1000)
@@ -968,19 +968,20 @@ def test_cuda_replay_counts_its_captured_launches(cuda_device):
     rig = _graph_cameras(cuda_device, 3, seed=22)
     graphs.release()
     try:
-        captured = list(tk.captured)
+        captured = tk.compositor_launches(tk.captured)
         state, _ = tr.train_steps_scan_multicam(state, [rig], 3, "fine",
                                                 *args)
         g = graphs.current()
-        assert g.launches == (3, 3)
-        assert [a - b for a, b in zip(tk.captured, captured)] == [3, 3]
+        assert tk.compositor_launches(g.captured) == (3, 3)
+        assert [a - b for a, b in zip(tk.compositor_launches(tk.captured),
+                                      captured)] == [3, 3]
         for _ in range(2):
-            before = (tk.launches, tk.bwd_launches)
+            before = tk.compositor_launches()
             state, _ = tr.train_steps_scan_multicam(state, [rig], 3, "fine",
                                                     *args)
             assert graphs.current() is g
-            assert (tk.launches - before[0],
-                    tk.bwd_launches - before[1]) == (3, 3)
+            assert (tk.launches["composite_fwd"] - before[0],
+                    tk.launches["composite_bwd"] - before[1]) == (3, 3)
         assert g.replays == 3
     finally:
         graphs.release()
@@ -1164,7 +1165,7 @@ def test_cuda_replayed_sweep_matches_direct_renders(cuda_device):
               aabb=state.aabb)
     stats = {}
     graphs.release()
-    before = (tk.launches, tk.bwd_launches)
+    before = tk.compositor_launches()
     frames = video.render_pixels(cams, active_sh_degree=sh, stage="fine",
                                  cfg=cfg, stats=stats, **kw)
     assert graphs.current() is None
@@ -1172,7 +1173,8 @@ def test_cuda_replayed_sweep_matches_direct_renders(cuda_device):
         ("rig", (9, 0)), ("flow", (1, 0))]
     assert stats["replays"] == 2 + 2 * len(cams)
     # replays count what their graph captured, the warm-ups once more
-    assert (tk.launches - before[0], tk.bwd_launches - before[1]) == (
+    assert (tk.launches["composite_fwd"] - before[0],
+            tk.launches["composite_bwd"] - before[1]) == (
         2 * 9 + 2 * len(cams) + 10, 0)
 
     def close(frame, img):
@@ -1235,10 +1237,10 @@ def test_cuda_segment_sum_matches_plain(cuda_device, d, with_perm):
     lens = rng.integers(0, 41, 400)
     offs = np.concatenate([[0], np.cumsum(lens)])
     offs = torch.from_numpy(np.minimum(offs, k)).to(cuda_device)
-    before = tk.seg_launches
+    before = tk.launches["segment_sum"]
     got = segsum.sum_ranges(vals, perm, offs)
     again = segsum.sum_ranges(vals, perm, offs)
-    assert tk.seg_launches - before == 2
+    assert tk.launches["segment_sum"] - before == 2
     want = segsum.ranges_torch(vals, perm, offs)
     assert got.shape == (400, d) and torch.equal(got, again)
     scale = float(want.abs().max())

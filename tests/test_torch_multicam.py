@@ -111,9 +111,9 @@ RIG_CASES = {
 def test_rig_step_matches_jax(jax_state, case):
     stage, rig_kw, opt_kw = RIG_CASES[case]
     cams = rig(**rig_kw)
-    launches = ttk.bwd_launches
+    launches = ttk.launches["composite_bwd"]
     js, jaux, ts, taux = run_rig_both(jax_state, cams, stage, opt_kw)
-    assert ttk.bwd_launches == launches          # CPU: no kernel ran
+    assert ttk.launches["composite_bwd"] == launches    # CPU: no kernel ran
     assert_rig_aux_match(taux, jaux)
     assert ("feat" in taux["metrics"]) == rig_kw.get("feat", False)
     assert int(taux["vis_count"].max()) == len(cams)

@@ -215,7 +215,7 @@ def test_capture_times_are_its_spans(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: None)
     spans.reset()
     try:
-        _, out, warm_ms, cap_ms, _, _, _ = graphs.capture(
+        _, out, warm_ms, cap_ms, _ = graphs.capture(
             CPU, lambda: time.sleep(0.003),
             lambda: time.sleep(0.006) or "out")
         warm, = spans.host_spans("graph.warmup")
@@ -286,7 +286,7 @@ def test_cuda_trace_holds_every_mark(replayed):
 
     state, args, rigs = replayed
     spans.reset()
-    before = tk.mark_launches
+    before = tk.launches["span_mark"]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     try:
@@ -299,5 +299,5 @@ def test_cuda_trace_holds_every_mark(replayed):
         spans.reset()
     n = sum(e.count for e in prof.key_averages() if e.key == "span_mark")
     assert n == 3 * (len(spans.last_marks()) + 1)
-    assert tk.mark_launches - before == n
+    assert tk.launches["span_mark"] - before == n
     assert kept["span_ns"].shape == (3, len(spans.NAMES))

@@ -62,3 +62,46 @@ def test_geometry_of_the_headline_tile():
 def test_geometry_raises_on_a_tile_the_kernels_cannot_serve(tile):
     with pytest.raises(ValueError):
         tk.launch_geometry(*tile)
+
+
+@pytest.fixture
+def zeroed_counts(monkeypatch):
+    """Both count tables of ``tile_kernels`` at 0, restored afterwards."""
+    for table in (tk.launches, tk.captured):
+        for kernel in tk.KERNELS:
+            monkeypatch.setitem(table, kernel, 0)
+
+
+@pytest.mark.parametrize("capturing", [False, True],
+                         ids=["eager", "capturing"])
+def test_launches_are_counted_by_kernel(monkeypatch, zeroed_counts,
+                                        capturing):
+    """A launch counts under its kernel's name: in ``captured`` while the
+    stream captures a graph, else in ``launches``."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    for kernel in ("composite_fwd", "hexplane_bwd", "hexplane_bwd"):
+        tk._count(kernel)
+    counted, other = ((tk.captured, tk.launches) if capturing
+                      else (tk.launches, tk.captured))
+    assert counted == {**dict.fromkeys(tk.KERNELS, 0), "composite_fwd": 1,
+                       "hexplane_bwd": 2}
+    assert not any(other.values())
+    assert tk.compositor_launches(counted) == (1, 0)
+    with pytest.raises(KeyError):
+        tk._count("no_such_kernel")
+
+
+def test_replays_add_what_their_graph_captured(zeroed_counts):
+    graph = {"composite_fwd": 3, "composite_bwd": 3, "span_mark": 12,
+             "hexplane_fwd": 1, "hexplane_bwd": 4}
+    for _ in range(2):
+        tk.count_replay(graph)
+    assert tk.launches == {**{k: 2 * n for k, n in graph.items()},
+                           "segment_sum": 0}
+    assert tk.compositor_launches() == (6, 6)
+    tk.reset("composite_fwd", "composite_bwd")
+    assert tk.compositor_launches() == (0, 0)
+    assert tk.launches["hexplane_bwd"] == 8
+    tk.reset()
+    assert not any(tk.launches.values())

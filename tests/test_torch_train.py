@@ -303,9 +303,9 @@ def assert_aux_match(taux, jaux):
 ])
 def test_train_step_matches_jax(jax_state, stage, n_steps, feat):
     cams = [_cameras(i, 0.3 + 0.2 * i, feat=feat) for i in range(n_steps)]
-    launches = ttk.bwd_launches
+    launches = ttk.launches["composite_bwd"]
     js, jaux, ts, taux = _run_both(jax_state, cams, stage, 3)
-    assert ttk.bwd_launches == launches          # CPU: no kernel ran
+    assert ttk.launches["composite_bwd"] == launches    # CPU: no kernel ran
     assert_aux_match(taux, jaux)
     assert ("feat" in taux["metrics"]) == feat
     assert int(taux["n_pairs"]) > 0
