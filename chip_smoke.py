@@ -162,7 +162,8 @@ last line):
      median), device operations, host launch calls and device ms a step
      as ``torch.profiler`` counts them, peak and reserved memory.  The
      span marks of (a) and (b) (``utils/spans.py``): one ``span_mark``
-     launch a mark of the step's sequence captured and counted a replay
+     launch a mark of the step's sequence (the field's two inner spans
+     included) captured and counted a replay
      and a warm-up step, as many ``span_mark`` kernels a replayed step in
      the profile, the replayed steps' spans within 5% of their
      CUDA-event time; the marks' device ms a step printed.  The hexplane
@@ -3539,8 +3540,9 @@ def graph_phase(torch, su, state, card):
             lambda: replayed(state_to(torch, base, dev), views, scan, n_cams))
         g = graphs.current()
         n = len(views)
-        # the capture's mark sequence: its spans and the closing mark
-        n_marks = len(spans.last_marks()) + 1
+        # the capture's mark sequence: its spans, the closing mark and the
+        # field's inner spans
+        n_marks = len(spans.last_marks()) + 1 + len(spans.last_inner())
         cap = g.captured
         check(tk.compositor_launches(cap) == (b, b),
               f"{what}: the graph captured {tk.compositor_launches(cap)} "

@@ -9,7 +9,9 @@ dr(4), do(1), dshs(48), gated by ``no_dx``/``no_ds``/``no_dr``/``no_do``/
 torch-default U(±1/√fan_in) biases, every draw from the caller's
 ``torch.Generator``.  Layers are ``nn.Linear`` (weight [out, in]); the
 JAX package stores ``w`` as [in, out] and computes ``x @ w + b``, so
-``weights.deformation_from_numpy`` transposes on load.
+``weights.deformation_from_numpy`` transposes on load.  Inside a train
+step the decoder (everything after the hexplane query) is timed by the
+inner spans ``field.mlp.fwd`` and ``field.mlp.bwd`` (``utils/spans.py``).
 
 ``param_groups`` splits the parameters into the reference's two
 optimizer groups: ``grid`` (the hexplane planes) and ``deformation``
@@ -28,6 +30,7 @@ from s3gaussian_tpu_torch.config import ModelHiddenParams
 from s3gaussian_tpu_torch.models import hexplane as hx
 from s3gaussian_tpu_torch.ops.gridsample import grid_sample_3d
 from s3gaussian_tpu_torch.ops.transforms import quat_multiply
+from s3gaussian_tpu_torch.utils import spans
 
 
 def _linear(fan_in: int, fan_out: int, generator: torch.Generator,
@@ -112,6 +115,11 @@ class DeformationField(nn.Module):
         h = hx.query_hexplane(
             self.grid, xyz, t, aabb, self.n_scales,
             compute_dtype=torch.bfloat16 if hp.grid_compute_bf16 else None)
+        # the decoder's inner spans (inside a train step): from here to the
+        # step's next mark, and in the backward from the field's outputs'
+        # gradients to h's
+        (h,) = spans.grad_inner_mark("field.mlp.bwd", h)
+        spans.inner_mark("field.mlp.fwd")
         h = self.feature_out(h)
 
         # static/dynamic gate multiplying the undeformed attribute before

@@ -17,9 +17,9 @@ reduce, as the JAX package's ``shard_map`` body does with ``psum`` /
     max; the four budget counters: the max (the worst rank, never
     averaged).
 
-The span counters (``utils/spans.py``: ``span_ns``, ``field_rows``,
-``visible_rows``) stay each rank's own; the reductions are the step's
-``allreduce`` span.
+The span counters (``utils/spans.py``: ``span_ns``, ``inner_ns``,
+``field_rows``, ``visible_rows``) stay each rank's own; the reductions
+are the step's ``allreduce`` span.
 
 Every rank then applies the same reduced gradient to the same state
 (``trainer.apply_param_update``, whose NaN watchdog reads the reduced

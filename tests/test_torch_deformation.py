@@ -117,6 +117,16 @@ VARIANTS = {
     "empty_voxel": {"empty_voxel": True},
     "all_heads": {"no_ds": False, "no_dr": False, "no_do": False},
     "rotation": {"no_dr": False, "apply_rotation": True, "feat_head": False},
+    # 4DGaussians' N3V decoder (arguments/waymo_4dgs.py) at its widths on a
+    # small spatial grid: feature_out one Linear(32, 128), five heads, no
+    # DINO head
+    "n3v_decoder": {"defor_depth": 0, "net_width": 128, "multires": [1, 2],
+                    "kplanes_config": {"grid_dimensions": 2,
+                                       "input_coordinate_dim": 4,
+                                       "output_coordinate_dim": 16,
+                                       "resolution": [8, 8, 8, 150]},
+                    "no_ds": False, "no_dr": False, "no_do": False,
+                    "feat_head": False},
 }
 
 

@@ -5,8 +5,10 @@
 The ``cuda``-marked tests skip without a GPU.  On the card the kernels
 must give the plain version's forward features and every plane's
 gradient bit for bit (the same ``segment_sum`` inputs), for bfloat16 and
-float32 grids, coordinates at exactly ±1 and outside the aabb, and a row
-count that is not a multiple of the block's 8 rows; the coordinate
+float32 grids, the default layout at 32 and 8 channels and 4DGaussians'
+N3V layout (16 channels, two scales, 150 time rows), coordinates at
+exactly ±1 and outside the aabb, and a row count that is not a multiple
+of the block's 8 rows; the coordinate
 gradient within atol 1e-5·max|plain|, rtol 1e-4 (the channel sums are
 taken in another order); a backward repeated, and a replayed CUDA graph,
 bit for bit.  The file imports neither jax nor the JAX package:
@@ -27,6 +29,9 @@ from s3gaussian_tpu_torch.ops import gridsample as gs
 from s3gaussian_tpu_torch.ops import tile_kernels as tk
 
 RESOLUTION, MULTIRES = (16, 16, 16, 7), (1, 2, 4, 8)
+# 4DGaussians' N3V layout (arguments/waymo_4dgs.py): 16 channels at two
+# scales over 150 time rows
+N3V_RESOLUTION, N3V_MULTIRES = (16, 16, 16, 150), (1, 2)
 AABB = ((2.0, 3.0, 1.5), (-2.0, -1.0, -1.5))     # [max; min], as stored
 N_ROWS = 1037                                     # not a multiple of 8
 COORD_ATOL, COORD_RTOL = 1e-5, 1e-4
@@ -42,11 +47,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def field(dev, channels, seed=0):
-    """A hexplane of the default layout at a small resolution, its planes
-    moved off their init so that the time planes are not all 1."""
+def field(dev, channels, seed=0, resolution=RESOLUTION, multires=MULTIRES):
+    """A hexplane of the default layout (or another) at a small spatial
+    resolution, its planes moved off their init so that the time planes
+    are not all 1."""
     params = hx.init_hexplane(torch.Generator().manual_seed(seed), channels,
-                              RESOLUTION, MULTIRES, "cpu")
+                              resolution, multires, "cpu")
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for p in params.values():
@@ -78,21 +84,25 @@ def features_and_grads(query, params, pts, t, dtype, cot):
     and by every plane (t on the points' device sets the aabb's)."""
     pts = pts.detach().requires_grad_(True)
     aabb = AABB_ON[t.device.type]
-    out = query(params, pts, t, aabb, len(MULTIRES),
+    out = query(params, pts, t, aabb, len(params) // 6,
                 None if dtype == torch.float32 else dtype)
     grads = torch.autograd.grad(out, [pts, *params.values()], cot)
     return out.detach(), grads[0], grads[1:]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [32, 8])
+@pytest.mark.parametrize("channels,resolution,multires", [
+    (32, RESOLUTION, MULTIRES), (8, RESOLUTION, MULTIRES),
+    (16, N3V_RESOLUTION, N3V_MULTIRES)], ids=["32", "8", "16-n3v"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_kernels_match_plain(cuda_device, dtype, channels):
-    params = field(cuda_device, channels)
+def test_kernels_match_plain(cuda_device, dtype, channels, resolution,
+                             multires):
+    params = field(cuda_device, channels, resolution=resolution,
+                   multires=multires)
     pts = points(cuda_device)
     t = torch.tensor(0.37, device=cuda_device)
-    cot = torch.randn((N_ROWS, channels * len(MULTIRES)),
+    cot = torch.randn((N_ROWS, channels * len(multires)),
                       generator=torch.Generator().manual_seed(3)).to(
         cuda_device)
     before = hex_launches(tk.launches)
@@ -101,7 +111,7 @@ def test_kernels_match_plain(cuda_device, dtype, channels):
     torch.cuda.synchronize()
     # one forward launch, one backward a scale
     assert [a - b for a, b in zip(hex_launches(tk.launches), before)] == [
-        1, len(MULTIRES)]
+        1, len(multires)]
     want, want_x, want_planes = features_and_grads(hx.query_hexplane_plain,
                                                    params, pts, t, dtype,
                                                    cot)

@@ -3,8 +3,11 @@ mid-training state of ``test_torch_cuda.py``.
 
 On the CPU: a step's marks (the documented names, in the order of a
 step, every camera of a rig marked, the cull and the all-reduce only
-where they run), ``span_ns`` against the stamps, ``field_rows`` and
-``visible_rows`` against counts made from renders outside a step, no
+where they run), ``span_ns`` against the stamps, the decoder's inner
+spans (``inner_ns``) inside their top-level spans and against their own
+stamps, the feature pass marked only where the field has its head,
+``field_rows`` and ``visible_rows`` against counts made from renders
+outside a step, no
 mark outside a step, the traced window's record, the host spans and
 their nesting, and ``graphs.capture``'s times as its spans.  On the card
 (``cuda``, skipped without one): a replayed block's spans against its
@@ -113,6 +116,82 @@ def test_coarse_step_runs_no_field(setup):
     assert int(aux["field_rows"]) == int(aux["visible_rows"]) == 0
 
 
+def test_top_level_names_are_unchanged():
+    """The inner spans add a counter and leave ``span_ns``'s names and
+    order as the readers know them."""
+    assert spans.NAMES == (
+        "cull", "field.fwd", "project.fwd", "bin.fwd", "composite.fwd",
+        "loss.fwd", "loss.bwd", "composite.bwd", "bin.bwd", "project.bwd",
+        "field.bwd", "allreduce", "update")
+    assert spans.INNER_NAMES == ("field.mlp.fwd", "field.mlp.bwd")
+    assert spans.KEYS == ("span_ns", "inner_ns", "field_rows",
+                          "visible_rows")
+
+
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("rig", [False, True])
+def test_inner_spans_lie_inside_their_spans(setup, rig, cull):
+    """One stamp each: ``field.mlp.fwd`` from its own stamp to the stamp
+    that opens ``project.fwd``, ``field.mlp.bwd`` from the stamp that
+    opens ``field.bwd`` to its own; each within its top-level span."""
+    state, args, cams = fresh(setup, cull)
+    step = tr.train_step_multicam if rig else tr.train_step
+    _, aux = step(state, cams if rig else cams[0], "fine", *args)
+    names = spans.last_marks()
+    assert spans.last_inner() == spans.INNER_NAMES
+    inner = aux["inner_ns"]
+    assert inner.shape == (len(spans.INNER_NAMES),)
+    assert inner.dtype == torch.int64 and bool((inner > 0).all())
+    top = dict(zip(spans.NAMES, aux["span_ns"].tolist()))
+    mlp = dict(zip(spans.INNER_NAMES, inner.tolist()))
+    assert mlp["field.mlp.fwd"] <= top["field.fwd"]
+    assert mlp["field.mlp.bwd"] <= top["field.bwd"]
+    stamps = spans.last_stamps()
+    own = spans._stamp_buffer(CPU)[spans.MAX_MARKS:spans.MAX_MARKS + 2]
+    assert mlp["field.mlp.fwd"] == int(
+        stamps[names.index("project.fwd")] - own[0])
+    assert mlp["field.mlp.bwd"] == int(
+        own[1] - stamps[names.index("field.bwd")])
+    # the top-level spans still tile the step
+    assert_span_ns(aux, names)
+
+
+def test_coarse_step_has_no_inner_span(setup):
+    state, args, cams = fresh(setup)
+    _, aux = tr.train_step(state, cams[0], "coarse", *args)
+    assert spans.last_inner() == ()
+    assert aux["inner_ns"].tolist() == [0] * len(spans.INNER_NAMES)
+
+
+@pytest.mark.parametrize("feat_head", [True, False])
+def test_feature_pass_marked_only_with_its_head(setup, feat_head):
+    """A view with a feature map: with the DINO head each camera stage is
+    marked twice (the RGB pass and the feature pass), without it once,
+    and the decoder's inner spans are there either way."""
+    from s3gaussian_tpu_torch.data.cameras import make_camera
+    from s3gaussian_tpu_torch.models.deformation import DeformationField
+
+    state, args, cams = fresh(setup)
+    sh, hp, opt, pipe, cfg, lr_scale, bg = args
+    hp = dataclasses.replace(hp, feat_head=feat_head)
+    state = tr.init_state(state.pool, DeformationField(
+        hp, torch.Generator().manual_seed(0), CPU), state.aabb)
+    c = cams[0]
+    rng = np.random.default_rng(4)
+    h, w = c.image_height, c.image_width
+    cam = dataclasses.replace(c, feat_map=torch.from_numpy(
+        rng.random((h, w, 3)).astype(np.float32)))
+    _, aux = tr.train_step(state, cam, "fine", sh, hp, opt, pipe, cfg,
+                           lr_scale, bg)
+    names = spans.last_marks()
+    passes = 2 if feat_head else 1
+    assert {n: names.count(n) for n in PER_CAMERA} == dict.fromkeys(
+        PER_CAMERA, passes)
+    assert spans.last_inner() == spans.INNER_NAMES
+    assert ("feat" in aux["metrics"]) is feat_head
+    assert_span_ns(aux, names)
+
+
 def test_allreduce_marked_in_the_data_parallel_step(setup, tmp_path):
     from s3gaussian_tpu_torch.parallel import data_parallel as dp
     from s3gaussian_tpu_torch.parallel.multihost import init_multihost
@@ -161,6 +240,7 @@ def test_block_under_a_profiler_is_kept(setup):
         spans.reset()
     assert kept["span_ns"].shape == (1, len(spans.NAMES))
     assert torch.equal(kept["span_ns"], aux["span_ns"])
+    assert torch.equal(kept["inner_ns"], aux["inner_ns"])
     assert kept["field_rows"].tolist() == [state.pool.capacity]
     assert torch.equal(kept["visible_rows"], aux["visible_rows"].long())
 
@@ -235,6 +315,13 @@ def test_step_line():
                             "visible_rows": torch.tensor(100)})
     assert line == ("spans (ms): field.fwd 2.500, update 0.001; visible "
                     "rows / field rows 100 / 400 (25.00%)")
+    inner = torch.tensor([1_250_000, 0])
+    line = spans.step_line({"span_ns": ns, "inner_ns": inner,
+                            "field_rows": torch.tensor(400),
+                            "visible_rows": torch.tensor(100)})
+    assert line == ("spans (ms): field.fwd 2.500, update 0.001; inside them "
+                    "field.mlp.fwd 1.250; visible rows / field rows 100 / "
+                    "400 (25.00%)")
 
 
 # --------------------------------------------------------------------------
@@ -275,13 +362,17 @@ def test_cuda_block_spans_cover_its_steps(replayed):
     assert bool((stamps[1:] >= stamps[:-1]).all())
     assert int(aux["span_ns"][-1].sum()) == int(stamps[-1] - stamps[0])
     assert_marks(spans.last_marks(), 3, False)
+    field = aux["span_ns"][:, [spans.NAMES.index("field.fwd"),
+                               spans.NAMES.index("field.bwd")]]
+    assert bool((aux["inner_ns"] > 0).all())
+    assert bool((aux["inner_ns"] <= field).all())
 
 
 @pytest.mark.cuda
 def test_cuda_trace_holds_every_mark(replayed):
     """A profiler trace of a replayed block of 3 holds exactly (marks a
-    step × steps) ``span_mark`` kernels, as many as the launch count
-    says, and the block is kept."""
+    step, the inner ones included, × steps) ``span_mark`` kernels, as
+    many as the launch count says, and the block is kept."""
     from s3gaussian_tpu_torch.ops import tile_kernels as tk
 
     state, args, rigs = replayed
@@ -298,6 +389,7 @@ def test_cuda_trace_holds_every_mark(replayed):
     finally:
         spans.reset()
     n = sum(e.count for e in prof.key_averages() if e.key == "span_mark")
-    assert n == 3 * (len(spans.last_marks()) + 1)
+    marks = len(spans.last_marks()) + 1 + len(spans.last_inner())
+    assert n == 3 * marks
     assert tk.launches["span_mark"] - before == n
     assert kept["span_ns"].shape == (3, len(spans.NAMES))
