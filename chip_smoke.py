@@ -460,16 +460,17 @@ def fine_stream(torch, cam, pool, deform, bg, aabb, cfg,
         colors = sh_to_color(d.shs, pool.xyz, cam.campos, 3)
         rot = d.rotations / torch.linalg.norm(d.rotations, dim=-1,
                                               keepdim=True)
-        _, pk, feat_pool = rz.project_and_key(
-            settings, d.xyz, torch.sigmoid(d.opacity)[:, 0],
-            scales=torch.exp(d.scales), rotations=rot, colors_precomp=colors,
-            alive=pool.alive, cfg=cfg)
+        opacity = torch.sigmoid(d.opacity)[:, 0]
+        proj, feat_pool = rz.project_and_pack(
+            settings, d.xyz, opacity, scales=torch.exp(d.scales),
+            rotations=rot, colors_precomp=colors, alive=pool.alive, cfg=cfg)
+        pk = rz.pair_keys(settings, proj, opacity, cfg)
         mark()
         gx, gy = rz.grid_dims(settings, cfg)
-        stream, tile_starts, _, _ = rz.sort_stream(
-            feat_pool, pk, gx * gy, cfg.rect_cap, cfg.pair_budget)
+        b = rz.bin_pairs(pk, gx * gy, cfg.pair_budget)
+        stream = rz.gather_stream(feat_pool, b, cfg.rect_cap)
         mark()
-    return stream, tile_starts, gx, gy
+    return stream, b.tile_starts, gx, gy
 
 
 def frame_stages(torch, cam, pool, deform, pipe, bg, aabb, cfg):

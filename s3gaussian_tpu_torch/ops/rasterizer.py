@@ -3,13 +3,19 @@
 
 Dataflow, in three stages that ``chip_smoke.py`` also times one by one:
 
-  ``project_and_key``: build_cov3d → project → SH colours → pair keys on
-  detached inputs → [16, N] feature rows;
-  ``sort_stream``: ONE stable (key, slot) sort → ONE gather of the 10
-  data rows at each sorted slot's column → tile ranges;
+  ``project_and_pack``: build_cov3d → project → SH colours → [16, N]
+  feature rows; ``pair_keys`` on detached inputs;
+  ``bin_pairs``: ONE stable (key, slot) sort → tile ranges, the view's
+  ``Binning``; ``gather_stream``: ONE gather of the 10 data rows at each
+  sorted slot's column;
   ``tile_kernels.CompositeTiles``: the CUDA compositors, forward and
   backward (plain PyTorch on CPU tensors) → ``unpack_tiles`` →
   ``color = rgb + final_T·bg``.
+
+A pass over the same projected geometry and alive mask as one already
+binned (the feature pass beside its camera's RGB pass) takes that pass's
+``Binning``: it projects and packs its own rows, differentiably, and
+gathers them at the same slots; keys, sort and tile ranges run once.
 
 Keys, the sort and the tile ranges are computed on detached tensors.  The
 gather is ``SortStreamGather``, the counterpart of the JAX package's
@@ -68,20 +74,37 @@ def grid_dims(settings: RasterSettings, cfg: RasterConfig) -> tuple[int, int]:
             -(-settings.image_height // cfg.tile_y))
 
 
-def project_and_key(settings: RasterSettings, means3d: torch.Tensor,
-                    opacities: torch.Tensor,
-                    scales: Optional[torch.Tensor] = None,
-                    rotations: Optional[torch.Tensor] = None,
-                    shs: Optional[torch.Tensor] = None,
-                    colors_precomp: Optional[torch.Tensor] = None,
-                    cov3d_precomp: Optional[torch.Tensor] = None,
-                    alive: Optional[torch.Tensor] = None,
-                    cfg: RasterConfig = RasterConfig(),
-                    mean2d_tap: Optional[torch.Tensor] = None
-                    ) -> tuple[ProjectedGaussians, PairKeys, torch.Tensor]:
-    """Stage 1: projection, colours and unsorted pair keys.
-    Returns (proj, pair keys, feat_pool [16, N])."""
-    grid_x, grid_y = grid_dims(settings, cfg)
+class Binning(NamedTuple):
+    """A view's binning, detached: what the pair stream's gather and its
+    backward read.  ``pk`` is the pair keys without their ``keys`` buffer
+    (freed after the sort), ``n_slots`` the emitted slots M, ``slots``
+    [bp] int64 the emission slot of each sorted pair, cut to the pair
+    budget; then the tile ranges [T+1] int32, ``n_pairs`` and
+    ``overflow_pairs``.  A pass whose projection and alive mask equal the
+    pass that binned can take it in place of its own."""
+
+    pk: PairKeys
+    n_slots: int
+    slots: torch.Tensor
+    tile_starts: torch.Tensor
+    n_pairs: torch.Tensor
+    overflow_pairs: torch.Tensor
+
+
+def project_and_pack(settings: RasterSettings, means3d: torch.Tensor,
+                     opacities: torch.Tensor,
+                     scales: Optional[torch.Tensor] = None,
+                     rotations: Optional[torch.Tensor] = None,
+                     shs: Optional[torch.Tensor] = None,
+                     colors_precomp: Optional[torch.Tensor] = None,
+                     cov3d_precomp: Optional[torch.Tensor] = None,
+                     alive: Optional[torch.Tensor] = None,
+                     cfg: RasterConfig = RasterConfig(),
+                     mean2d_tap: Optional[torch.Tensor] = None
+                     ) -> tuple[ProjectedGaussians, torch.Tensor]:
+    """Stage 1, differentiable: projection and colours, then (in
+    ``bin.fwd``, which it opens) packed into the [16, N] feature rows.
+    Returns (proj, feat_pool)."""
     cov3d = (build_cov3d(scales, rotations, settings.scale_modifier)
              if cov3d_precomp is None else cov3d_precomp)
     proj = project_gaussians(
@@ -95,17 +118,22 @@ def project_and_key(settings: RasterSettings, means3d: torch.Tensor,
     packed = spans.grad_mark("project.bwd", proj.xy, proj.conic, opacities,
                              colors, proj.depth)
     spans.mark("bin.fwd")
-    nr = min(cfg.max_visible, means3d.shape[0])
+    return proj, comp.pack_pool_features(*packed)
+
+
+def pair_keys(settings: RasterSettings, proj: ProjectedGaussians,
+              opacities: torch.Tensor, cfg: RasterConfig) -> PairKeys:
+    """The unsorted pair keys of a projection, on detached inputs."""
+    grid_x, grid_y = grid_dims(settings, cfg)
+    nr = min(cfg.max_visible, proj.depth.shape[0])
     nb = (min(cfg.big_budget, nr)
           if (cfg.big_budget > 0 and cfg.rect_cap > 4 and cfg.rect_w >= 2
               and cfg.rect_h >= 2) else 0)
-    pk = make_pair_keys(
+    return make_pair_keys(
         ProjectedGaussians(*[x.detach() for x in proj]), grid_x, grid_y,
         cfg.max_visible, cfg.rect_w, cfg.rect_h, cfg.tile_x, cfg.tile_y,
         opacities=opacities.detach() if cfg.tight_rect else None,
         big_budget=nb)
-    feat_pool = comp.pack_pool_features(*packed)
-    return proj, pk, feat_pool
 
 
 class SortStreamGather(torch.autograd.Function):
@@ -170,23 +198,28 @@ class SortStreamGather(torch.autograd.Function):
         return d_pool, None, None, None, None, None
 
 
-def sort_stream(feat_pool: torch.Tensor, pk: PairKeys, n_tiles: int,
-                rect_cap: int, pair_budget: int):
-    """Stage 2: one stable (key, slot) sort, one gather of the 10 data rows
-    at the sorted, budget-truncated positions, tile ranges.
-    Returns (stream [16, bp], tile_starts [T+1] int32, n_pairs, overflow_pairs)."""
+def bin_pairs(pk: PairKeys, n_tiles: int, pair_budget: int) -> Binning:
+    """Stage 2's binning: one stable (key, slot) sort, the sorted slots
+    cut to the budget, tile ranges."""
     m = pk.keys.shape[0]
     bp = min(m, pair_budget)
     sorted_tile, sorted_slot = sort_pairs(pk)
     tile_starts, n_pairs, overflow_pairs = tile_ranges(sorted_tile, n_tiles,
                                                        bp)
-    rows = SortStreamGather.apply(feat_pool[:comp.N_DATA_ROWS],
-                                  sorted_slot[:bp], n_pairs, pk, rect_cap, m)
-    const = torch.zeros(comp.PAIR_FEAT_DIM - comp.N_DATA_ROWS, bp,
-                        dtype=rows.dtype, device=rows.device)
+    return Binning(pk._replace(keys=None), m, sorted_slot[:bp], tile_starts,
+                   n_pairs, overflow_pairs)
+
+
+def gather_stream(feat_pool: torch.Tensor, b: Binning,
+                  rect_cap: int) -> torch.Tensor:
+    """Stage 2's stream: ONE gather of the 10 data rows at the binning's
+    sorted slots, beside the constant rows.  Returns [16, bp]."""
+    rows = SortStreamGather.apply(feat_pool[:comp.N_DATA_ROWS], b.slots,
+                                  b.n_pairs, b.pk, rect_cap, b.n_slots)
+    const = torch.zeros(comp.PAIR_FEAT_DIM - comp.N_DATA_ROWS,
+                        rows.shape[1], dtype=rows.dtype, device=rows.device)
     const[0] = 1.0                                   # the FONE channel
-    stream = torch.cat([rows, const], 0).contiguous()
-    return stream, tile_starts, n_pairs, overflow_pairs
+    return torch.cat([rows, const], 0).contiguous()
 
 
 def rasterize(settings: RasterSettings, means3d: torch.Tensor,
@@ -198,34 +231,44 @@ def rasterize(settings: RasterSettings, means3d: torch.Tensor,
               cov3d_precomp: Optional[torch.Tensor] = None,
               mean2d_tap: Optional[torch.Tensor] = None,
               alive: Optional[torch.Tensor] = None,
-              cfg: RasterConfig = RasterConfig()):
+              cfg: RasterConfig = RasterConfig(),
+              binning: Optional[Binning] = None):
     """Render one view from activated inputs.  Returns
     (color [3,H,W], radii [N], depth [H,W], aux); differentiable with
-    respect to every float input and ``mean2d_tap``."""
+    respect to every float input and ``mean2d_tap``.  ``aux["binning"]``
+    is the view's ``Binning``.  Given ``binning`` (that of a pass with
+    the same projected geometry and alive mask), the call projects and
+    packs its own rows and gathers them at its slots, with no keys, sort
+    or tile ranges of its own."""
     h, w = settings.image_height, settings.image_width
     grid_x, grid_y = grid_dims(settings, cfg)
+    spans.count(raster_passes=1, bins_reused=int(binning is not None))
     spans.mark("project.fwd")
-    proj, pk, feat_pool = project_and_key(
+    proj, feat_pool = project_and_pack(
         settings, means3d, opacities, scales, rotations, shs, colors_precomp,
         cov3d_precomp, alive, cfg, mean2d_tap)
-    stream, tile_starts, n_pairs, overflow_pairs = sort_stream(
-        feat_pool, pk, grid_x * grid_y, cfg.rect_cap, cfg.pair_budget)
+    if binning is None:
+        binning = bin_pairs(pair_keys(settings, proj, opacities, cfg),
+                            grid_x * grid_y, cfg.pair_budget)
+    stream = gather_stream(feat_pool, binning, cfg.rect_cap)
     (stream,) = spans.grad_mark("bin.bwd", stream)
     spans.mark("composite.fwd")
-    out = CompositeTiles.apply(stream, tile_starts, grid_x, grid_y,
+    out = CompositeTiles.apply(stream, binning.tile_starts, grid_x, grid_y,
                                cfg.tile_x, cfg.tile_y)
     maps = comp.unpack_tiles(out, h, w, grid_x, grid_y, cfg.tile_x,
                              cfg.tile_y)
     color = maps["rgb"] + maps["final_T"][None] * settings.bg[:, None, None]
     color, depth = spans.grad_mark("composite.bwd", color, maps["depth"])
+    pk = binning.pk
     aux = {
         "final_T": maps["final_T"],
         "n_contrib": maps["n_contrib"],
         "n_visible": pk.n_visible,
-        "n_pairs": n_pairs,
+        "n_pairs": binning.n_pairs,
         "overflow_rect": pk.overflow_rect,
         "overflow_visible": pk.overflow_visible,
-        "overflow_pairs": overflow_pairs,
+        "overflow_pairs": binning.overflow_pairs,
         "visible": proj.visible,
+        "binning": binning,
     }
     return color, proj.radius, depth, aux

@@ -13,7 +13,9 @@ pool to a working set of ``max_visible`` rows (``ops/compact.py``).
 Inside a train step the stages are marked (``utils/spans.py``): the
 cull, the field forward and, through an identity on its outputs, its
 backward; projection and SH per camera and pass (``rasterize`` marks
-binning and compositing); the field's rows and their visibility.
+binning and compositing); the field's rows and their visibility.  The
+feature pass takes its camera's RGB-pass binning (``_feature_pass``); the
+decomposition passes, whose alive masks differ, bin their own.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from s3gaussian_tpu_torch.ops.compact import (candidates, expand_by_rank,
                                               take_compact)
 from s3gaussian_tpu_torch.ops.project import (build_cov3d, project_gaussians,
                                               sh_to_color)
-from s3gaussian_tpu_torch.ops.rasterizer import RasterSettings, rasterize
+from s3gaussian_tpu_torch.ops.rasterizer import (Binning, RasterSettings,
+                                                 rasterize)
 from s3gaussian_tpu_torch.utils import spans
 
 
@@ -122,6 +125,19 @@ def _dynamic_split(dx: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     return (mx > thr) & alive
 
 
+def _feature_pass(settings: RasterSettings, means: torch.Tensor,
+                  opacity: torch.Tensor, scales: torch.Tensor,
+                  rotations: torch.Tensor, feat: torch.Tensor,
+                  alive: torch.Tensor, cfg: RasterConfig,
+                  binning: Binning) -> torch.Tensor:
+    """The DINO feature map rendered as colours (positions detached, no
+    tap) over the geometry and alive mask of the camera's RGB pass, whose
+    ``binning`` it takes: the same projection bins to the same pairs."""
+    return rasterize(settings, means.detach(), opacity, scales=scales,
+                     rotations=rotations, colors_precomp=feat, alive=alive,
+                     cfg=cfg, binning=binning)[0]
+
+
 def render(camera: Camera, pool: GaussianPool,
            deform: Optional[DeformationField], pipe: PipelineParams,
            bg: torch.Tensor, aabb: Optional[torch.Tensor] = None,
@@ -165,11 +181,11 @@ def render(camera: Camera, pool: GaussianPool,
 
     settings = make_settings(camera, bg, active_sh_degree, scaling_modifier)
 
-    def rast(alive_mask, means=xyz_f, colors_precomp=colors, tap=None):
-        return rasterize(settings, means, op_act, scales=scales_act,
+    def rast(alive_mask, tap=None):
+        return rasterize(settings, xyz_f, op_act, scales=scales_act,
                          rotations=rot_act,
-                         shs=None if colors_precomp is not None else shs_f,
-                         colors_precomp=colors_precomp, mean2d_tap=tap,
+                         shs=None if colors is not None else shs_f,
+                         colors_precomp=colors, mean2d_tap=tap,
                          alive=alive_mask, cfg=cfg)
 
     color, radii, depth, aux = rast(pool.alive, tap=mean2d_tap)
@@ -188,7 +204,9 @@ def render(camera: Camera, pool: GaussianPool,
     }
 
     if render_feat and fine and feat is not None:
-        result["feat"] = rast(pool.alive, xyz_f.detach(), feat)[0]
+        result["feat"] = _feature_pass(settings, xyz_f, op_act, scales_act,
+                                       rot_act, feat, pool.alive, cfg,
+                                       aux["binning"])
 
     if return_decomposition and dx is not None:
         dyn = _dynamic_split(dx, pool.alive)
@@ -258,9 +276,11 @@ def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
     colors = [sh_to_color(shs_f, pool.xyz, cam.campos, active_sh_degree)
               if pipe.convert_SHs_python else None for cam in cameras]
 
+    settings = [make_settings(cam, bg, active_sh_degree) for cam in cameras]
+
     def rast(b, alive_mask, tap=None):
-        return rasterize(make_settings(cameras[b], bg, active_sh_degree),
-                         xyz_f, op_act, scales=scales_act, rotations=rot_act,
+        return rasterize(settings[b], xyz_f, op_act, scales=scales_act,
+                         rotations=rot_act,
                          shs=None if colors[b] is not None else shs_f,
                          colors_precomp=colors[b], mean2d_tap=tap,
                          alive=alive_mask, cfg=cfg)
@@ -285,10 +305,9 @@ def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
         for k in ("overflow_rect", "overflow_visible", "overflow_pairs"):
             ovf[k] = aux[k] if k not in ovf else torch.maximum(ovf[k], aux[k])
         if render_feat and fine and feat is not None:
-            feats.append(rasterize(
-                make_settings(cameras[b], bg, active_sh_degree),
-                xyz_f.detach(), op_act, scales=scales_act, rotations=rot_act,
-                colors_precomp=feat, alive=pool.alive, cfg=cfg)[0])
+            feats.append(_feature_pass(settings[b], xyz_f, op_act,
+                                       scales_act, rot_act, feat, pool.alive,
+                                       cfg, aux["binning"]))
     if out is not None:
         spans.count(visible=visible_red)
     if vis0 is not None:

@@ -26,8 +26,8 @@ edit the pool's rows and their Adam moments and return a new state.
 A step marks its stages (``utils/spans.py``: the cull, the field, per
 camera and pass projection, binning and compositing, the loss, each of
 their backward passes, the update) and returns their device time by
-name, ``span_ns``, and the field's ``field_rows`` and ``visible_rows``
-beside its aux.
+name, ``span_ns``, the field's ``field_rows`` and ``visible_rows`` and
+the rasterizer's ``raster_passes`` and ``bins_reused`` beside its aux.
 
 ``train_steps_scan`` and ``train_steps_scan_multicam`` run a block of
 steps, JAX's unit of dispatch: on the card N replays of the step

@@ -37,8 +37,11 @@ mark), ``inner_ns`` [len(INNER_NAMES)] int64 those of the inner spans;
 beside them ``field_rows``, the rows entering the deformation field
 (the pool's capacity, or the culled working set's size), and
 ``visible_rows``, those of them visible in at least one camera of the
-step (both 0 in the coarse stage, which runs no field).  The four are
-top-level keys of the step's aux and of its ``small_aux``.
+step (both 0 in the coarse stage, which runs no field); and two tallies
+(``TALLIES``) of the rasterizer: ``raster_passes``, the step's
+``rasterize`` calls, and ``bins_reused``, those of them that took another
+pass's binning.  The six are top-level keys of the step's aux and of its
+``small_aux``.
 
 **The traced window.**  ``trainer.scan_steps`` keeps a block's stacked
 counters (``keep``) when a profiler is on at dispatch, and only then;
@@ -68,7 +71,8 @@ NAMES = ("cull", "field.fwd", "project.fwd", "bin.fwd", "composite.fwd",
          "field.bwd", "allreduce", "update")
 # stretches inside a top-level span, each timed by one more stamp
 INNER_NAMES = ("field.mlp.fwd", "field.mlp.bwd")
-KEYS = ("span_ns", "inner_ns", "field_rows", "visible_rows")  # a step's
+TALLIES = ("raster_passes", "bins_reused")   # summed over a step's counts
+KEYS = ("span_ns", "inner_ns", "field_rows", "visible_rows") + TALLIES
 MAX_MARKS = 512          # top-level stamps a step, slots [0, MAX_MARKS)
 MAX_INNER = 64           # inner stamps a step, the slots after them
 
@@ -178,13 +182,13 @@ class StepRecord:
         span_ns, inner_ns = ns[:len(NAMES)], ns[len(NAMES):]
         vis = self.counts.get("visible")
         return {"span_ns": span_ns, "inner_ns": inner_ns,
-                "field_rows": torch.full((), self.counts.get("field_rows", 0),
-                                         dtype=torch.int32,
-                                         device=self.device),
                 "visible_rows": (vis.sum(dtype=torch.int32)
                                  if vis is not None else
                                  torch.zeros((), dtype=torch.int32,
-                                             device=self.device))}
+                                             device=self.device)),
+                **{k: torch.full((), self.counts.get(k, 0),
+                                 dtype=torch.int32, device=self.device)
+                   for k in ("field_rows",) + TALLIES}}
 
 
 _open: Optional[StepRecord] = None
@@ -223,9 +227,12 @@ def mark(name: str) -> None:
 
 def count(**kw: Any) -> None:
     """Record the step's ``field_rows`` (an int) or its field rows'
-    ``visible`` mask; nothing outside a step."""
+    ``visible`` mask, or add to its ``TALLIES``; nothing outside a
+    step."""
     if _open is not None:
-        _open.counts.update(kw)
+        for k, v in kw.items():
+            _open.counts[k] = (_open.counts.get(k, 0) + v if k in TALLIES
+                               else v)
 
 
 def inner_mark(name: str) -> None:
@@ -316,9 +323,9 @@ def keep(aux: Dict[str, Any]) -> None:
 
 def traced_steps() -> Optional[Dict[str, torch.Tensor]]:
     """Every kept step's counters on the host (``span_ns`` [S,
-    len(NAMES)], ``inner_ns`` [S, len(INNER_NAMES)], ``field_rows`` and
-    ``visible_rows`` [S], int64; a counter only where every kept block
-    has it), or None when nothing was kept."""
+    len(NAMES)], ``inner_ns`` [S, len(INNER_NAMES)], ``field_rows``,
+    ``visible_rows`` and the ``TALLIES`` [S], int64; a counter only where
+    every kept block has it), or None when nothing was kept."""
     if not _traced:
         return None
     return {k: torch.cat([b[k].to("cpu", torch.int64) for b in _traced])

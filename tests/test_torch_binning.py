@@ -102,3 +102,103 @@ def test_two_class_emission_raises():
                                       np.asarray(getattr(pk, k)), err_msg=k)
     assert int(tpk.overflow_rect) == int(pk.overflow_rect)
     assert int(np.asarray(pk.big_granted).sum()) > 0
+
+
+# (n, max_visible, w, h, tile, rect, big_budget, tight_rect)
+REUSE_CASES = {
+    "single_class": (250, 512, 96, 64, 16, 4, 0, True),
+    "compaction": (250, 120, 96, 64, 16, 4, 0, True),
+    "loose_rect": (250, 512, 96, 64, 16, 4, 0, False),
+    "two_class": (200, 256, 96, 64, 8, 8, 32, True),
+    "two_key_two_class": (200, 256, 256, 256, 4, 8, 32, False),
+}
+
+
+@pytest.mark.parametrize("case", list(REUSE_CASES))
+def test_feature_pass_projection_bins_as_the_rgb_pass(case):
+    """The feature pass projects the RGB pass's means detached, with no
+    screen tap and with other colours: its pair keys, sorted slots and
+    tile ranges are the RGB pass's bit for bit, which is what lets it
+    take that pass's ``Binning``."""
+    from s3gaussian_tpu_torch.config import RasterConfig
+    from s3gaussian_tpu_torch.ops import rasterizer as trz
+
+    n, max_visible, w, h, tile, rect, big, tight = REUSE_CASES[case]
+    sc = random_scene(n=n, seed=1, w=w, h=h, scale_range=(0.02, 0.3))
+
+    def t(k):
+        return torch.from_numpy(sc[k])
+
+    settings = trz.RasterSettings(h, w, sc["tanfov"], sc["tanfov"],
+                                  torch.zeros(3), 1.0, t("view"), t("proj"),
+                                  0, torch.zeros(3))
+    cfg = RasterConfig(max_visible=max_visible, tile_x=tile, tile_y=tile,
+                       rect_w=rect, rect_h=rect, big_budget=big,
+                       tight_rect=tight, pair_budget=1 << 20)
+    means = t("means").requires_grad_(True)
+    common = dict(scales=t("scales"), rotations=t("quats"),
+                  alive=torch.arange(n) % 7 != 3, cfg=cfg)
+    rgb = trz.pair_keys(settings, trz.project_and_pack(
+        settings, means, t("opacity"), colors_precomp=t("colors"),
+        mean2d_tap=torch.zeros(n, 2, requires_grad=True), **common)[0],
+        t("opacity"), cfg)
+    feat = trz.pair_keys(settings, trz.project_and_pack(
+        settings, means.detach(), t("opacity"),
+        colors_precomp=torch.rand(n, 3, generator=torch.Generator()
+                                  .manual_seed(2)), **common)[0],
+        t("opacity"), cfg)
+    assert (rgb.big_sel is not None) == (big > 0)
+    for name, a, b in zip(tbin.PairKeys._fields, rgb, feat):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), name
+        else:
+            assert a == b, name
+    gx, gy = trz.grid_dims(settings, cfg)
+    got = [trz.bin_pairs(pk, gx * gy, cfg.pair_budget) for pk in (rgb, feat)]
+    assert got[0].pk.keys is None and got[0].n_slots == rgb.keys.shape[0]
+    assert int(got[0].n_pairs) > 0
+    for name in ("slots", "tile_starts", "n_pairs", "overflow_pairs"):
+        assert torch.equal(getattr(got[0], name), getattr(got[1], name)), \
+            name
+
+
+@pytest.mark.parametrize("rig", [False, True])
+def test_decomposition_passes_bin_their_own(rig, monkeypatch):
+    """With the feature pass and the decomposition on, only the feature
+    pass takes a binning, its own camera's RGB pass's; the dynamic and
+    static passes, whose alive masks differ, bin their own."""
+    from s3gaussian_tpu_torch.render import renderer
+    from test_torch_cuda import _graph_cameras, _graph_setup
+
+    cpu = torch.device("cpu")
+    state, (sh, _, _, pipe, cfg, _, bg) = _graph_setup(cpu)
+    cams = _graph_cameras(cpu, 3 if rig else 1)
+    calls = []
+    real = renderer.rasterize
+
+    def spy(*a, binning=None, **kw):
+        out = real(*a, binning=binning, **kw)
+        calls.append((binning, out[3]["binning"]))
+        return out
+
+    monkeypatch.setattr(renderer, "rasterize", spy)
+    with torch.no_grad():
+        if rig:
+            pkg = renderer.render_multicam(
+                cams, state.pool, state.deform, pipe, bg, state.aabb, sh,
+                return_decomposition=True, render_feat=True, cfg=cfg)
+        else:
+            pkg = renderer.render(
+                cams[0], state.pool, state.deform, pipe, bg, state.aabb, sh,
+                return_decomposition=True, render_feat=True, cfg=cfg)
+    assert "feat" in pkg and "render_d" in pkg and "render_s" in pkg
+    b = len(cams)
+    assert len(calls) == 4 * b
+    # per camera its RGB pass then its feature pass, then per camera the
+    # dynamic and the static pass
+    for i in range(b):
+        (rgb_in, rgb_out), (feat_in, feat_out) = calls[2 * i:2 * i + 2]
+        assert rgb_in is None
+        assert feat_in is rgb_out and feat_out is rgb_out
+    assert all(given is None for given, _ in calls[2 * b:])
+    assert len({id(out) for _, out in calls}) == 3 * b

@@ -23,8 +23,9 @@ from s3gaussian_tpu_torch.config import RasterConfig
 from s3gaussian_tpu_torch.ops import tile_kernels as tk
 from s3gaussian_tpu_torch.ops.composite import (composite_tiles_bwd_torch,
                                                 composite_tiles_torch)
-from s3gaussian_tpu_torch.ops.rasterizer import (RasterSettings,
-                                                 project_and_key, sort_stream)
+from s3gaussian_tpu_torch.ops.rasterizer import (RasterSettings, bin_pairs,
+                                                 gather_stream, pair_keys,
+                                                 project_and_pack)
 from s3gaussian_tpu_torch.ops.transforms import projection_matrix
 
 W, H = 96, 64
@@ -56,16 +57,17 @@ def sorted_stream(dev, seed, n, opacity_range, tile):
                               t(full), 0, t(np.zeros(3)))
     cfg = RasterConfig(tile_x=tile, tile_y=tile, max_visible=n, rect_w=8,
                        rect_h=8, pair_budget=1 << 20)
-    _, pk, feat = project_and_key(
-        settings, t(means), t(rng.uniform(*opacity_range, n)),
+    opacity = t(rng.uniform(*opacity_range, n))
+    proj, feat = project_and_pack(
+        settings, t(means), opacity,
         scales=t(rng.uniform(0.02, 0.3, (n, 3))),
         rotations=t(q / np.linalg.norm(q, axis=1, keepdims=True)),
         colors_precomp=t(rng.random((n, 3))), cfg=cfg)
     gx, gy = -(-W // tile), -(-H // tile)
-    stream, starts, n_pairs, _ = sort_stream(feat, pk, gx * gy, cfg.rect_cap,
-                                             cfg.pair_budget)
-    assert int(n_pairs) > 0
-    return stream, starts, gx, gy
+    b = bin_pairs(pair_keys(settings, proj, opacity, cfg), gx * gy,
+                  cfg.pair_budget)
+    assert int(b.n_pairs) > 0
+    return gather_stream(feat, b, cfg.rect_cap), b.tile_starts, gx, gy
 
 
 @pytest.mark.cuda

@@ -215,3 +215,98 @@ def test_unported_options_raise(scene):
     np.testing.assert_array_equal(got["raster_aux"]["visible"].numpy(),
                                   np.asarray(want["raster_aux"]["visible"]))
     _close(got["dx"], want["dx"], atol=1e-5, rtol=0, msg="dx")
+
+
+# RasterConfig changes from test_torch_cuda._graph_setup's (8×8 tiles and
+# rects, max_visible 2,048 over 1,500 points, pair budget 2^18)
+REUSE = {
+    "single_class": {},
+    "loose_rect": dict(tight_rect=False),
+    "two_class": dict(big_budget=64),
+    "culled": dict(cull_before_deform=True, max_visible=1024),
+    "pair_budget_cut": dict(pair_budget=2048),
+}
+
+
+@pytest.fixture(scope="module")
+def reuse_scene():
+    from test_torch_cuda import _graph_cameras, _graph_setup
+    cpu = torch.device("cpu")
+    state, (sh, _, _, pipe, cfg, _, bg) = _graph_setup(cpu)
+    cams = [dataclasses.replace(c, feat_map=torch.from_numpy(
+        np.random.default_rng(i).random((c.image_height, c.image_width, 3))
+        .astype(np.float32))) for i, c in enumerate(_graph_cameras(cpu, 3))]
+    return state, sh, pipe, cfg, bg, cams
+
+
+def _feat_step(scene, case, rig):
+    """A fine render with the feature pass on leaf views of the pool and a
+    zero tap, then one backward of a random weighting of its render,
+    feat and depth.  Returns (outputs, gradients by leaf, binnings of
+    the rasterize calls)."""
+    from s3gaussian_tpu_torch.render import renderer
+    state, sh, pipe, cfg, bg, cams = scene
+    cfg = dataclasses.replace(cfg, **REUSE[case])
+    pool = state.pool.with_params({k: v.detach().requires_grad_(True)
+                                   for k, v in
+                                   state.pool.param_dict().items()})
+    tap = torch.zeros(((3,) if rig else ()) + (pool.capacity, 2),
+                      requires_grad=True)
+    if rig:
+        pkg = renderer.render_multicam(cams, pool, state.deform, pipe, bg,
+                                       state.aabb, sh, render_feat=True,
+                                       mean2d_tap=tap, cfg=cfg)
+    else:
+        pkg = renderer.render(cams[0], pool, state.deform, pipe, bg,
+                              state.aabb, sh, render_feat=True,
+                              mean2d_tap=tap, cfg=cfg)
+    outs = {k: pkg[k] for k in ("render", "feat", "depth", "radii")}
+    g = torch.Generator().manual_seed(5)
+    loss = sum((outs[k] * torch.randn(outs[k].shape, generator=g)).sum()
+               for k in ("render", "feat", "depth"))
+    leaves = {**{"pool." + k: v for k, v in pool.param_dict().items()},
+              **{"deform." + k: v
+                 for k, v in state.deform.named_parameters()},
+              "tap": tap}
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return outs, dict(zip(leaves, grads))
+
+
+@pytest.mark.parametrize("case", list(REUSE))
+@pytest.mark.parametrize("rig", [False, True])
+def test_feature_pass_reuses_the_rgb_binning_bit_for_bit(reuse_scene, case,
+                                                         rig, monkeypatch):
+    """The feature pass on its RGB pass's binning renders and
+    differentiates exactly as when every pass bins itself: render, feat,
+    depth, radii and the gradient of every pool and field leaf and of the
+    tap bit for bit; one binning a camera instead of two."""
+    from s3gaussian_tpu_torch.ops import rasterizer as trz
+    from s3gaussian_tpu_torch.render import renderer
+
+    made = []
+    real_bin, real_rast = trz.bin_pairs, renderer.rasterize
+
+    def counted(*a, **kw):
+        made.append(real_bin(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(trz, "bin_pairs", counted)
+    got = _feat_step(reuse_scene, case, rig)
+    shared = list(made)
+    made.clear()
+    monkeypatch.setattr(renderer, "rasterize",
+                        lambda *a, binning=None, **kw: real_rast(*a, **kw))
+    want = _feat_step(reuse_scene, case, rig)
+    n_cams = 3 if rig else 1
+    assert (len(shared), len(made)) == (n_cams, 2 * n_cams)
+    if case == "two_class":
+        assert all(bool(b.pk.big_granted.any()) for b in shared)
+    if case == "pair_budget_cut":
+        assert all(int(b.overflow_pairs) > 0 for b in shared)
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    for k, w in want[1].items():
+        assert (got[1][k] is None) == (w is None), k
+        assert w is None or torch.equal(got[1][k], w), k
+    assert want[1]["pool.opacity"] is not None

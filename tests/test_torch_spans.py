@@ -7,12 +7,14 @@ where they run), ``span_ns`` against the stamps, the decoder's inner
 spans (``inner_ns``) inside their top-level spans and against their own
 stamps, the feature pass marked only where the field has its head,
 ``field_rows`` and ``visible_rows`` against counts made from renders
-outside a step, no
+outside a step, the rasterizer's passes and reused binnings, no
 mark outside a step, the traced window's record, the host spans and
 their nesting, and ``graphs.capture``'s times as its spans.  On the card
 (``cuda``, skipped without one): a replayed block's spans against its
-CUDA-event step times, the stamps' order, and the ``span_mark`` kernels
-of a profiler trace against the program's mark sequence.
+CUDA-event step times, the stamps' order, the ``span_mark`` kernels
+of a profiler trace against the program's mark sequence, and a rig step
+with the feature pass: 3 of 6 binnings reused, the marks unchanged, one
+pair sort a camera.
 
 The file imports neither jax nor the JAX package.
 """
@@ -103,6 +105,10 @@ def test_step_marks_every_stage(setup, rig, cull):
     assert_span_ns(aux, names)
     assert int(aux["field_rows"]) == (1024 if cull else state.pool.capacity)
     assert 0 < int(aux["visible_rows"]) == visible
+    # the fixture's cameras carry no feature map: no feature pass
+    n_cams = len(cams) if rig else 1
+    assert (int(aux["raster_passes"]), int(aux["bins_reused"])) == (
+        n_cams, 0)
     assert set(spans.KEYS) <= set(tr.small_aux(aux))
 
 
@@ -125,7 +131,7 @@ def test_top_level_names_are_unchanged():
         "field.bwd", "allreduce", "update")
     assert spans.INNER_NAMES == ("field.mlp.fwd", "field.mlp.bwd")
     assert spans.KEYS == ("span_ns", "inner_ns", "field_rows",
-                          "visible_rows")
+                          "visible_rows", "raster_passes", "bins_reused")
 
 
 @pytest.mark.parametrize("cull", [False, True])
@@ -166,8 +172,9 @@ def test_coarse_step_has_no_inner_span(setup):
 @pytest.mark.parametrize("feat_head", [True, False])
 def test_feature_pass_marked_only_with_its_head(setup, feat_head):
     """A view with a feature map: with the DINO head each camera stage is
-    marked twice (the RGB pass and the feature pass), without it once,
-    and the decoder's inner spans are there either way."""
+    marked twice (the RGB pass and the feature pass, which takes the RGB
+    pass's binning), without it once, and the decoder's inner spans are
+    there either way."""
     from s3gaussian_tpu_torch.data.cameras import make_camera
     from s3gaussian_tpu_torch.models.deformation import DeformationField
 
@@ -189,6 +196,8 @@ def test_feature_pass_marked_only_with_its_head(setup, feat_head):
         PER_CAMERA, passes)
     assert spans.last_inner() == spans.INNER_NAMES
     assert ("feat" in aux["metrics"]) is feat_head
+    assert (int(aux["raster_passes"]), int(aux["bins_reused"])) == (
+        passes, passes - 1)
     assert_span_ns(aux, names)
 
 
@@ -243,6 +252,8 @@ def test_block_under_a_profiler_is_kept(setup):
     assert torch.equal(kept["inner_ns"], aux["inner_ns"])
     assert kept["field_rows"].tolist() == [state.pool.capacity]
     assert torch.equal(kept["visible_rows"], aux["visible_rows"].long())
+    assert (kept["raster_passes"].tolist(), kept["bins_reused"].tolist()) \
+        == ([1], [0])
 
 
 def test_host_spans_nest_with_their_parent():
@@ -393,3 +404,81 @@ def test_cuda_trace_holds_every_mark(replayed):
     assert n == 3 * marks
     assert tk.launches["span_mark"] - before == n
     assert kept["span_ns"].shape == (3, len(spans.NAMES))
+
+
+def _profiled_replay(state, args, rigs):
+    """One replay of the rig step, captured anew on the first rig, under
+    the profiler: (device kernels by name, its aux, the step's marks and
+    inner marks)."""
+    graphs.release()
+    state, _ = tr.train_steps_scan_multicam(graphs.clone_state(state),
+                                            rigs[:1], 3, "fine", *args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, aux = tr.train_steps_scan_multicam(state, rigs[1:], 3, "fine",
+                                              *args)
+        torch.cuda.synchronize()
+    graphs.release()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0) + 1
+    return kernels, aux, spans.last_marks(), spans.last_inner()
+
+
+@pytest.mark.cuda
+def test_cuda_feature_pass_takes_its_camera_binning(monkeypatch):
+    """A captured rig step of 3 cameras with the feature head: 3 of its 6
+    rasterize calls reuse a binning; it makes the marks the step makes
+    when each feature pass bins itself, one ``span_mark`` kernel each;
+    and a replay runs the sort kernels of the same rig without a feature
+    pass (one pair sort a camera, half the 6 compositor passes), three
+    pair sorts fewer than a replay whose feature passes bin
+    themselves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the span mark is a CUDA kernel")
+    from s3gaussian_tpu_torch.render import renderer
+
+    dev = torch.device("cuda")
+    state, args = _graph_setup(dev, seed=15)
+    rng = np.random.default_rng(6)
+    cams = [dataclasses.replace(c, feat_map=torch.from_numpy(
+        rng.random((c.image_height, c.image_width, 3)).astype(np.float32)
+    ).to(dev)) for c in _graph_cameras(dev, 6, seed=25)]
+    rigs = [cams[:3], cams[3:]]
+    spans.reset()
+    try:
+        shared = _profiled_replay(state, args, rigs)
+        real = renderer.rasterize
+        with monkeypatch.context() as m:
+            m.setattr(renderer, "rasterize",
+                      lambda *a, binning=None, **kw: real(*a, **kw))
+            own = _profiled_replay(state, args, rigs)
+        plain = _profiled_replay(state, args, [
+            [dataclasses.replace(c, feat_map=None) for c in r]
+            for r in rigs])
+    finally:
+        spans.reset()
+    kernels, aux, names, inner = shared
+    assert (aux["raster_passes"].tolist(), aux["bins_reused"].tolist()) \
+        == ([6], [3])
+    assert (own[1]["raster_passes"].tolist(),
+            own[1]["bins_reused"].tolist()) == ([6], [0])
+    assert "feat" in aux["metrics"] and "feat" not in plain[1]["metrics"]
+    assert_marks(names, 6, False)
+    assert (names, inner) == own[2:]
+    assert kernels["span_mark"] == len(names) + 1 + len(inner) \
+        == own[0]["span_mark"]
+
+    def count(table, pick):
+        return sum(n for name, n in table.items() if pick(name))
+
+    def sorts(table):
+        return count(table, lambda name: "sort" in name.lower())
+
+    got = (sorts(kernels), sorts(plain[0]), sorts(own[0]))
+    assert count(kernels, lambda n: "composite_fwd_kernel" in n) == 6
+    assert got[0] == got[1] < got[2], got
+    assert (got[2] - got[0]) % 3 == 0, got

@@ -27,8 +27,8 @@ from s3gaussian_tpu.ops.rasterizer import rasterize as j_rasterize
 from s3gaussian_tpu_torch.config import RasterConfig
 from s3gaussian_tpu_torch.ops import binning as tbin
 from s3gaussian_tpu_torch.ops.rasterizer import RasterSettings as TSettings
-from s3gaussian_tpu_torch.ops.rasterizer import (SortStreamGather,
-                                                 project_and_key)
+from s3gaussian_tpu_torch.ops.rasterizer import (SortStreamGather, pair_keys,
+                                                 project_and_pack)
 from s3gaussian_tpu_torch.ops.rasterizer import rasterize as t_rasterize
 
 from scenes import random_scene
@@ -130,14 +130,16 @@ def test_stream_backward_matches_jax_custom_vjp(case):
 
 
 def _stream_inputs(budget, max_visible, pair_budget):
-    """The pair keys and feature rows of the scene, and what ``sort_stream``
-    hands ``SortStreamGather``."""
+    """The pair keys and feature rows of the scene, and what
+    ``bin_pairs`` hands ``SortStreamGather``."""
     sc = random_scene(n=N, seed=4, w=W, h=H)
     _, cfg = _cfgs(budget, max_visible, pair_budget)
     leaves = [t(a) for a in _args(sc)]
-    _, pk, feat = project_and_key(_settings(sc, "torch"), leaves[0],
-                                  leaves[3], leaves[1], leaves[2],
-                                  colors_precomp=leaves[4], cfg=cfg)
+    settings = _settings(sc, "torch")
+    proj, feat = project_and_pack(settings, leaves[0], leaves[3], leaves[1],
+                                  leaves[2], colors_precomp=leaves[4],
+                                  cfg=cfg)
+    pk = pair_keys(settings, proj, leaves[3], cfg)
     m = pk.keys.shape[0]
     bp = min(m, pair_budget)
     sorted_tile, sorted_slot = tbin.sort_pairs(pk)
