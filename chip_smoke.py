@@ -1252,11 +1252,10 @@ def sweep_graph_phase(torch, rec, card):
               "7b: the train split is not laid out as rigs")
         # the kinds of render the sweep captures, eager, with no host sync
         rig_fn = video._sweep_render(pool, deform, pipe, bg, aabb, sh,
-                                     stage, cfg, True, True, True, True,
-                                     True)
+                                     stage, cfg, True, True, True, True)
         flow_fn = video._sweep_render(pool, deform, pipe, bg, aabb, sh,
                                       stage, cfg, False, False, False,
-                                      False, False)
+                                      False)
         rig = [video._slim(c, True) for c in groups[0]]
         one = [video._slim(cams[0], False)]
         colors = torch.rand((pool.capacity, 3), device=bg.device)
@@ -1833,7 +1832,7 @@ def rig_split(torch, state, rigs, su, cfg):
         grads, tap_grad = tr.step_gradients(loss, tree, tap)
         ev[2].record()
         state = tr.rig_update(state, grads, tap_grad, loss.detach(), aux,
-                              len(cams), su.opt, SPATIAL_LR_SCALE)
+                              su.opt, SPATIAL_LR_SCALE)
         ev[3].record()
         torch.cuda.synchronize()
         for i, k in enumerate(parts):
@@ -2925,13 +2924,12 @@ def dp_world_of_one_phase(torch, dev, card):
             state_to(torch, s_one, "cpu"), aux, aux_one, "12a DP step")
         del s_one, aux_one
         # the reduction alone, on a step's terms
-        loss, aux2, tree, tap = tr.step_forward(state, cam, "fine", 3, su.hp,
-                                                su.opt, su.pipe, su.cfg,
-                                                su.bg)
+        loss, aux2, tree, tap = tr.step_forward(state, [cam], "fine", 3,
+                                                su.hp, su.opt, su.pipe,
+                                                su.cfg, su.bg)
         grads, tap_grad = tr.step_gradients(loss, tree, tap)
         sums, maxes = dp.step_buckets(
-            grads, torch.linalg.norm(tap_grad[..., :2], dim=-1),
-            aux2["visible"].to(torch.float32), loss.detach(), aux2)
+            grads, *tr.rig_stats(tap_grad, aux2), loss.detach(), aux2)
         ms = []
         for _ in range(DP_REPS):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -4000,14 +3998,13 @@ def main(only=None) -> int:
     for cam in train_cams[n_steps:]:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        loss, aux, tree, tap = tr.step_forward(state, cam, "fine", 3, hp,
+        loss, aux, tree, tap = tr.step_forward(state, [cam], "fine", 3, hp,
                                                opt, pipe, cfg, bg)
         ev[1].record()
         grads, tap_grad = tr.step_gradients(loss, tree, tap)
         ev[2].record()
-        state = tr.apply_param_update(state, grads, tap_grad, loss.detach(),
-                                      aux["radii"], aux["visible"], opt,
-                                      SPATIAL_LR_SCALE)
+        state = tr.rig_update(state, grads, tap_grad, loss.detach(), aux,
+                              tr.unscaled(opt), SPATIAL_LR_SCALE)
         ev[3].record()
         torch.cuda.synchronize()
         for i, k in enumerate(parts):

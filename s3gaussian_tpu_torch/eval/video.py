@@ -43,7 +43,7 @@ from s3gaussian_tpu_torch.eval.visualization import (scene_flow_to_rgb, to8b,
 from s3gaussian_tpu_torch.models.deformation import DeformationField
 from s3gaussian_tpu_torch.models.pool import GaussianPool
 from s3gaussian_tpu_torch.ops import tile_kernels as tk
-from s3gaussian_tpu_torch.render.renderer import render, render_multicam
+from s3gaussian_tpu_torch.render.renderer import render_multicam
 from s3gaussian_tpu_torch.train import graphs
 from s3gaussian_tpu_torch.train.checkpoints import save_ply_split
 
@@ -136,34 +136,25 @@ def view_metrics(rgb: torch.Tensor, cam: Camera) -> Dict[str, float]:
 def _sweep_render(pool: GaussianPool, deform: Optional[DeformationField],
                   pipe: PipelineParams, bg: torch.Tensor,
                   aabb: Optional[torch.Tensor], sh_deg: int, stage: str,
-                  cfg: RasterConfig, rig: bool, decomp: bool, want_dx: bool,
+                  cfg: RasterConfig, decomp: bool, want_dx: bool,
                   with_metrics: bool, with_lpips: bool):
     """What one render of the sweep computes (the JAX sweep's jitted
-    ``run``): ``fn(cams, override_color=None)`` renders a rig
-    (``render_multicam``) or one camera (``render``) and returns its
-    frames as uint8 ``[B,H,W,3]`` (``render``, with the decomposition
-    ``render_d``/``render_s``), ``depth [B,H,W]``, ``dx`` when the field
-    gives it, the render's ``overflow`` counters [3], and with metrics
-    ``metrics [K,B]`` float64 from the float32 render, named by
-    ``metric_names``; nothing else."""
+    ``run``): ``fn(cams, override_color=None)`` renders a rig of one or
+    more cameras (``render_multicam``) and returns its frames as uint8
+    ``[B,H,W,3]`` (``render``, with the decomposition
+    ``render_d``/``render_s``), ``depth [B,H,W]``, with ``want_dx`` the
+    ``dx`` the field gives, the render's ``overflow`` counters [3], and
+    with metrics ``metrics [K,B]`` float64 from the float32 render, named
+    by ``metric_names``; nothing else."""
 
     def fn(cams: Sequence[Camera], override_color=None):
-        if rig:
-            pkg = render_multicam(cams, pool, deform, pipe, bg, aabb, sh_deg,
-                                  stage=stage, return_decomposition=decomp,
-                                  cfg=cfg)
-        else:
-            pkg = render(cams[0], pool, deform, pipe, bg, aabb, sh_deg,
-                         stage=stage, return_decomposition=decomp,
-                         return_dx=want_dx, override_color=override_color,
-                         cfg=cfg)
-            pkg = {k: (v[None] if k in ("render", "depth", "render_d",
-                                        "render_s") else v)
-                   for k, v in pkg.items()}
+        pkg = render_multicam(cams, pool, deform, pipe, bg, aabb, sh_deg,
+                              stage=stage, return_decomposition=decomp,
+                              cfg=cfg, override_color=override_color)
         out = {k: _to8b_dev(pkg[k]) for k in ("render", "render_d",
                                               "render_s") if k in pkg}
         out["depth"] = pkg["depth"]
-        if pkg.get("dx") is not None:
+        if want_dx and pkg["dx"] is not None:
             out["dx"] = pkg["dx"]
         aux = pkg["raster_aux"]
         out["overflow"] = torch.stack([torch.as_tensor(aux[k]).to(
@@ -304,20 +295,16 @@ def render_pixels(cameras: Sequence[Camera], pool: GaussianPool,
                     elif k == "lpips":
                         metrics[k].append(None)
 
-    def sweep_fn(rig, decomp, want_dx, with_metrics):
+    def sweep_fn(decomp, want_dx, with_metrics):
         return _sweep_render(pool, deform, pipe, bg, aabb, active_sh_degree,
-                             stage, cfg, rig, decomp, want_dx, with_metrics,
+                             stage, cfg, decomp, want_dx, with_metrics,
                              with_metrics and with_lpips)
 
     t0 = time.perf_counter()
     groups = rig_groups(cameras, num_cams)
-    if groups is not None:
-        fn = sweep_fn(True, return_decomposition and fine, fine,
-                      compute_metrics)
-        units, what = groups, "rig"
-    else:
-        fn = sweep_fn(False, return_decomposition, fine, compute_metrics)
-        units, what = [[c] for c in cameras], "camera"
+    fn = sweep_fn(return_decomposition and fine, fine, compute_metrics)
+    units, what = ((groups, "rig") if groups is not None
+                   else ([[c] for c in cameras], "camera"))
     for unit in units:
         dispatch(what, fn, [_slim(c, compute_metrics) for c in unit],
                  [c.image for c in unit if c.image is not None],
@@ -338,7 +325,7 @@ def render_pixels(cameras: Sequence[Camera], pool: GaussianPool,
     t0 = time.perf_counter()
     if have_dx and len(cameras) > num_cams:
         n = len(cameras)
-        flow_fn = sweep_fn(False, False, False, False)
+        flow_fn = sweep_fn(False, False, False)
         for i, cam in enumerate(cameras):
             if dx_per_cam[i] is None:
                 continue

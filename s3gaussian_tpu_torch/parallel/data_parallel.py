@@ -2,17 +2,19 @@
 ``s3gaussian_tpu/parallel/data_parallel.py``).
 
 Each rank holds a full replica of the train state and renders its own
-camera (``parallel_train_step``) or its own same-time rig
-(``parallel_train_step_multicam``) with the single-device halves of the
-step (``trainer.step_forward``, ``step_gradients``); the ranks then
-reduce, as the JAX package's ``shard_map`` body does with ``psum`` /
-``pmean`` / ``pmax``:
+same-time rig (``parallel_train_step_multicam``; its own camera,
+``parallel_train_step``, is a rig of one at the unscaled learning
+rates) with the single-device halves of the step
+(``trainer.step_forward``, ``step_gradients``); the ranks then reduce,
+as the JAX package's ``shard_map`` body does with ``psum`` / ``pmean``
+/ ``pmax``:
 
   * the parameter gradients: the sum over ranks divided by the world size
     (the batched loss's gradient is the mean);
-  * the statistics' tap term: with ``multicam_percam_stats`` the sum of
-    each rank's per-view screen-gradient norms and the count of the ranks
-    (cameras) that saw each Gaussian, else the sum of the raw vectors;
+  * the statistics' tap term (``trainer.rig_stats``): with
+    ``multicam_percam_stats`` the sum of every view's screen-gradient
+    norms and the count of the views that saw each Gaussian, else the
+    sum of the raw vectors;
   * the loss and each metric: the mean; the radii and visibility: the
     max; the four budget counters: the max (the worst rank, never
     averaged).
@@ -57,7 +59,7 @@ from s3gaussian_tpu_torch.train.trainer import (TrainState,
                                                 apply_param_update,
                                                 rig_stats, scan_steps,
                                                 step_forward,
-                                                step_gradients)
+                                                step_gradients, unscaled)
 from s3gaussian_tpu_torch.utils import spans
 
 COUNTERS = ("n_pairs", "overflow_rect", "overflow_visible", "overflow_pairs")
@@ -106,10 +108,11 @@ def all_reduce_buckets(sums: Terms, maxes: Terms) -> Tuple[Terms, Terms]:
 def reduced_update(state: TrainState, grads, tap_term: torch.Tensor,
                    vis_count: Optional[torch.Tensor], loss: torch.Tensor,
                    aux: Dict[str, Any], opt: OptimizationParams,
-                   spatial_lr_scale: float, lr_scale: float = 1.0
+                   spatial_lr_scale: float
                    ) -> Tuple[TrainState, Dict[str, Any]]:
     """Reduce one rank's step terms over the process group and apply the
-    update with the reduced ones.  Returns the new state and the reduced
+    update with the reduced ones, every learning rate scaled by
+    ``opt.multicam_lr_scale``.  Returns the new state and the reduced
     aux (metrics, radii, visibility, counters and, with a count,
     ``vis_count``)."""
     spans.mark("allreduce")
@@ -121,7 +124,7 @@ def reduced_update(state: TrainState, grads, tap_term: torch.Tensor,
     new_state = apply_param_update(
         state, mean_grads, sums["tap"], sums["loss"] / world,
         maxes["radii"], maxes["visible"], opt, spatial_lr_scale,
-        lr_scale=lr_scale, vis_count=sums.get("vis_count"))
+        lr_scale=opt.multicam_lr_scale, vis_count=sums.get("vis_count"))
     out = {"metrics": {k: sums[f"metric.{k}"] / world
                        for k in aux["metrics"]},
            "radii": maxes["radii"], "visible": maxes["visible"],
@@ -129,31 +132,6 @@ def reduced_update(state: TrainState, grads, tap_term: torch.Tensor,
     if "vis_count" in sums:
         out["vis_count"] = sums["vis_count"]
     return new_state, out
-
-
-@spans.step
-def parallel_train_step(state: TrainState, camera: Camera, stage: str,
-                        active_sh_degree: int, hp: ModelHiddenParams,
-                        opt: OptimizationParams, pipe: PipelineParams,
-                        cfg: RasterConfig, spatial_lr_scale: float,
-                        bg: torch.Tensor
-                        ) -> Tuple[TrainState, Dict[str, Any]]:
-    """One data-parallel step: this rank's ``camera``, the gradients
-    reduced over the process group, the same update on every rank."""
-    loss, aux, tree, tap = step_forward(state, camera, stage,
-                                        active_sh_degree, hp, opt, pipe, cfg,
-                                        bg)
-    grads, tap_grad = step_gradients(loss, tree, tap)
-    if opt.multicam_percam_stats:
-        # per-view statistics (the flag governs every batched-view seam):
-        # each rank's screen-gradient norm before the sum, and the count
-        # of the ranks that saw each Gaussian as the denominator
-        tap_term = torch.linalg.norm(tap_grad[..., :2], dim=-1)
-        vis_count = aux["visible"].to(torch.float32)
-    else:
-        tap_term, vis_count = tap_grad, None
-    return reduced_update(state, grads, tap_term, vis_count, loss, aux, opt,
-                          spatial_lr_scale)
 
 
 @spans.step
@@ -169,14 +147,26 @@ def parallel_train_step_multicam(state: TrainState,
     ``cameras`` (one field evaluation), its statistics terms as the rig
     step's (``trainer.rig_stats``), reduced over the process group, and
     the learning rates scaled by ``opt.multicam_lr_scale``."""
-    cameras = list(cameras)
-    loss, aux, tree, tap = step_forward(state, cameras, stage,
+    loss, aux, tree, tap = step_forward(state, list(cameras), stage,
                                         active_sh_degree, hp, opt, pipe, cfg,
                                         bg)
     grads, tap_grad = step_gradients(loss, tree, tap)
-    tap_term, vis_count = rig_stats(tap_grad, aux, len(cameras), opt)
+    tap_term, vis_count = rig_stats(tap_grad, aux)
     return reduced_update(state, grads, tap_term, vis_count, loss, aux, opt,
-                          spatial_lr_scale, lr_scale=opt.multicam_lr_scale)
+                          spatial_lr_scale)
+
+
+def parallel_train_step(state: TrainState, camera: Camera, stage: str,
+                        active_sh_degree: int, hp: ModelHiddenParams,
+                        opt: OptimizationParams, pipe: PipelineParams,
+                        cfg: RasterConfig, spatial_lr_scale: float,
+                        bg: torch.Tensor
+                        ) -> Tuple[TrainState, Dict[str, Any]]:
+    """One data-parallel step on this rank's ``camera``: the rig step on
+    ``[camera]`` under ``trainer.unscaled(opt)``."""
+    return parallel_train_step_multicam(state, [camera], stage,
+                                        active_sh_degree, hp, unscaled(opt),
+                                        pipe, cfg, spatial_lr_scale, bg)
 
 
 def _capturable(state: TrainState) -> None:

@@ -1,6 +1,6 @@
-"""The train step, coarse and fine, on one camera or on a same-time rig
+"""The train step, coarse and fine, on a same-time rig of B >= 1 cameras
 (port of ``s3gaussian_tpu/train/trainer.py``: ``TrainState``,
-``init_state``, ``reinit_optimizer``, ``lr_dict``, ``compute_loss``,
+``init_state``, ``reinit_optimizer``, ``lr_dict``,
 ``compute_loss_multicam``, ``apply_param_update``, ``train_step``,
 ``train_step_multicam``, ``train_steps_scan``,
 ``train_steps_scan_multicam``, density control and ``probe_pool``).
@@ -12,16 +12,17 @@
        + λ_dssim·(1−SSIM)
        + λ_feat·L2(feat, dino_gt)                       (fine, feat_head)
 
-A step (``train_step``, ``train_step_multicam``) is an eager call:
-render forward and backward through the CUDA compositors, the losses,
+A step (``train_step_multicam``) is an eager call: render forward and
+backward through the CUDA compositors, with one field evaluation for
+the rig's cameras, the losses pooled over the stacked renders,
 dead-row gradient masking, the NaN watchdog, the scheduled per-group
 Adam and the densification statistics fed by the gradient of the
 ``mean2d_tap``.  It writes every output into the state's own tensors
 (parameters, moments, ``count``, statistics, ``step``, ``nan_skips``),
-as donation does in JAX, and returns that state.  The rig step
-evaluates the field once for the rig's cameras and pools the losses
-over the stacked renders.  ``densify_step`` and ``opacity_reset_step``
-edit the pool's rows and their Adam moments and return a new state.
+as donation does in JAX, and returns that state.  ``train_step`` is
+that step on a rig of one at the unscaled learning rates.
+``densify_step`` and ``opacity_reset_step`` edit the pool's rows and
+their Adam moments and return a new state.
 
 A step marks its stages (``utils/spans.py``: the cull, the field, per
 camera and pass projection, binning and compositing, the loss, each of
@@ -54,7 +55,7 @@ from s3gaussian_tpu_torch.models.pool import (GaussianPool, PoolStats,
                                               add_densification_stats,
                                               densify_and_prune,
                                               reset_opacity)
-from s3gaussian_tpu_torch.render.renderer import render, render_multicam
+from s3gaussian_tpu_torch.render.renderer import render_multicam
 from s3gaussian_tpu_torch.train.losses import (depth_loss, l1_loss, l2_loss,
                                                psnr, ssim)
 from s3gaussian_tpu_torch.train.lr import expon_lr
@@ -136,17 +137,31 @@ def lr_dict(step: torch.Tensor, opt: OptimizationParams,
     }
 
 
-def _loss_terms(pkg: Dict[str, Any], gt: torch.Tensor,
-                gt_depth: Optional[torch.Tensor],
-                gt_feat: Optional[torch.Tensor], fine: bool,
-                deform: DeformationField, hp: ModelHiddenParams,
-                opt: OptimizationParams
-                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """The step's loss from a render package and its targets ([3,H,W] or
-    a rig's stacked [B,3,H,W]; pooled means over the rig, as the
-    reference's ``torch.cat`` of the batch): (loss, aux of radii,
-    visibility, budget counters and a ``metrics`` dict of 0-d tensors)."""
+def compute_loss_multicam(pool: GaussianPool, deform: DeformationField,
+                          tap: torch.Tensor, cameras: Sequence[Camera],
+                          stage: str, active_sh_degree: int,
+                          hp: ModelHiddenParams, opt: OptimizationParams,
+                          pipe: PipelineParams, aabb: torch.Tensor,
+                          bg: torch.Tensor, cfg: RasterConfig
+                          ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The loss of a rig of B >= 1 same-time cameras, pooled over the
+    stacked [B,...] renders as the reference's ``batch_size > 1`` loop
+    pools its ``torch.cat`` (depth pools its valid mask over the rig);
+    the dx, dshs and hexplane terms once, as the rig shares one field
+    evaluation.  ``tap`` is shared [Nc,2] or per camera [B,Nc,2].
+    Returns (loss, aux of radii, visibility, ``vis_count``, budget
+    counters and a ``metrics`` dict of 0-d tensors)."""
+    fine = "fine" in stage
+    want_feat = (fine and hp.feat_head
+                 and all(c.feat_map is not None for c in cameras))
+    pkg = render_multicam(cameras, pool, deform if fine else None, pipe, bg,
+                          aabb, active_sh_degree, stage=stage,
+                          render_feat=want_feat, mean2d_tap=tap, cfg=cfg)
+
     spans.mark("loss.fwd")
+    gt = torch.stack([c.image.permute(2, 0, 1) for c in cameras])
+    gt_depth = (torch.stack([c.depth_map for c in cameras])
+                if all(c.depth_map is not None for c in cameras) else None)
     loss = l1_loss(pkg["render"], gt)
     metrics = {"l1": loss, "psnr": psnr(pkg["render"], gt)}
 
@@ -177,7 +192,8 @@ def _loss_terms(pkg: Dict[str, Any], gt: torch.Tensor,
         s = ssim(pkg["render"], gt)
         loss = loss + opt.lambda_dssim * (1.0 - s)
         metrics["ssim"] = s
-    if gt_feat is not None:
+    if want_feat:
+        gt_feat = torch.stack([c.feat_map.permute(2, 0, 1) for c in cameras])
         fl = l2_loss(pkg["feat"], gt_feat) * opt.lambda_feat
         loss = loss + fl
         metrics["feat"] = fl
@@ -185,61 +201,11 @@ def _loss_terms(pkg: Dict[str, Any], gt: torch.Tensor,
     metrics["loss"] = loss
     raster = pkg["raster_aux"]
     aux = {"radii": pkg["radii"],
-           "visible": raster["visible"],
-           "n_pairs": raster["n_pairs"],
-           "overflow_rect": raster["overflow_rect"],
-           "overflow_visible": raster["overflow_visible"],
-           "overflow_pairs": raster["overflow_pairs"],
+           **{k: raster[k] for k in ("visible", "vis_count", "n_pairs",
+                                     "overflow_rect", "overflow_visible",
+                                     "overflow_pairs")},
            "metrics": {k: v.detach() for k, v in metrics.items()}}
-    if "vis_count" in raster:
-        aux["vis_count"] = raster["vis_count"]
     return loss, aux
-
-
-def compute_loss(pool: GaussianPool, deform: DeformationField,
-                 tap: torch.Tensor, camera: Camera, stage: str,
-                 active_sh_degree: int, hp: ModelHiddenParams,
-                 opt: OptimizationParams, pipe: PipelineParams,
-                 aabb: torch.Tensor, bg: torch.Tensor, cfg: RasterConfig
-                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """The step's loss and aux (radii, visibility, budget counters and a
-    ``metrics`` dict of 0-d tensors)."""
-    fine = "fine" in stage
-    want_feat = fine and hp.feat_head and camera.feat_map is not None
-    pkg = render(camera, pool, deform if fine else None, pipe, bg, aabb,
-                 active_sh_degree, stage=stage, return_dx=True,
-                 render_feat=want_feat, mean2d_tap=tap, cfg=cfg)
-    return _loss_terms(
-        pkg, camera.image.permute(2, 0, 1), camera.depth_map,
-        camera.feat_map.permute(2, 0, 1) if want_feat else None, fine,
-        deform, hp, opt)
-
-
-def compute_loss_multicam(pool: GaussianPool, deform: DeformationField,
-                          tap: torch.Tensor, cameras: Sequence[Camera],
-                          stage: str, active_sh_degree: int,
-                          hp: ModelHiddenParams, opt: OptimizationParams,
-                          pipe: PipelineParams, aabb: torch.Tensor,
-                          bg: torch.Tensor, cfg: RasterConfig
-                          ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """The loss of a rig of same-time cameras, pooled over the stacked
-    [B,...] renders as the reference's ``batch_size > 1`` loop pools its
-    ``torch.cat`` (depth pools its valid mask over the rig); the dx,
-    dshs and hexplane terms once, as the rig shares one field
-    evaluation.  ``tap`` is shared [Nc,2] or per camera [B,Nc,2].  The
-    aux adds ``vis_count``."""
-    fine = "fine" in stage
-    want_feat = (fine and hp.feat_head
-                 and all(c.feat_map is not None for c in cameras))
-    pkg = render_multicam(cameras, pool, deform if fine else None, pipe, bg,
-                          aabb, active_sh_degree, stage=stage,
-                          render_feat=want_feat, mean2d_tap=tap, cfg=cfg)
-    has_depth = all(c.depth_map is not None for c in cameras)
-    return _loss_terms(
-        pkg, torch.stack([c.image.permute(2, 0, 1) for c in cameras]),
-        torch.stack([c.depth_map for c in cameras]) if has_depth else None,
-        (torch.stack([c.feat_map.permute(2, 0, 1) for c in cameras])
-         if want_feat else None), fine, deform, hp, opt)
 
 
 @torch.no_grad()
@@ -297,21 +263,23 @@ def step_forward(state: TrainState, camera: Camera | Sequence[Camera],
                  stage: str, active_sh_degree: int, hp: ModelHiddenParams,
                  opt: OptimizationParams, pipe: PipelineParams,
                  cfg: RasterConfig, bg: torch.Tensor):
-    """The forward half of a step: the loss over leaf views of the pool's
-    tensors, the field's parameters and a zero ``mean2d_tap``.  Given a
-    list of same-time cameras it is the rig step's: ``compute_loss_multicam``
-    with a per-camera tap [B,Nc,2] when ``opt.multicam_percam_stats``,
-    else a shared one.  Returns (loss, aux, params tree, tap)."""
+    """The forward half of a step: the loss (``compute_loss_multicam``)
+    over leaf views of the pool's tensors, the field's parameters and a
+    zero ``mean2d_tap``.  A list of same-time cameras is a rig, with a
+    per-camera tap [B,Nc,2] when ``opt.multicam_percam_stats``, else a
+    shared one [Nc,2]; a bare camera renders as a rig of one with a
+    shared tap.  Returns (loss, aux, params tree, tap)."""
     pool = state.pool.with_params({k: v.detach().requires_grad_(True)
                                    for k, v in
                                    state.pool.param_dict().items()})
     rig = isinstance(camera, (list, tuple))
-    shape = ((len(camera),) if rig and opt.multicam_percam_stats else ()) \
+    cameras = list(camera) if rig else [camera]
+    shape = ((len(cameras),) if rig and opt.multicam_percam_stats else ()) \
         + (pool.capacity, 2)
     tap = torch.zeros(shape, device=pool.xyz.device, requires_grad=True)
-    loss_fn = compute_loss_multicam if rig else compute_loss
-    loss, aux = loss_fn(pool, state.deform, tap, camera, stage,
-                        active_sh_degree, hp, opt, pipe, state.aabb, bg, cfg)
+    loss, aux = compute_loss_multicam(pool, state.deform, tap, cameras,
+                                      stage, active_sh_degree, hp, opt,
+                                      pipe, state.aabb, bg, cfg)
     return loss, aux, param_tree(pool, state.deform), tap
 
 
@@ -330,49 +298,38 @@ def step_gradients(loss: torch.Tensor, tree, tap: torch.Tensor):
     return grads, flat[-1]
 
 
-@spans.step
-def train_step(state: TrainState, camera: Camera, stage: str,
-               active_sh_degree: int, hp: ModelHiddenParams,
-               opt: OptimizationParams, pipe: PipelineParams,
-               cfg: RasterConfig, spatial_lr_scale: float, bg: torch.Tensor
-               ) -> Tuple[TrainState, Dict[str, Any]]:
-    """One optimizer step on one camera, stage "coarse" or "fine"."""
-    loss, aux, tree, tap = step_forward(state, camera, stage,
-                                        active_sh_degree, hp, opt, pipe, cfg,
-                                        bg)
-    grads, tap_grad = step_gradients(loss, tree, tap)
-    new_state = apply_param_update(state, grads, tap_grad, loss.detach(),
-                                   aux["radii"], aux["visible"], opt,
-                                   spatial_lr_scale)
-    return new_state, aux
-
-
-def rig_stats(tap_grad: torch.Tensor, aux: Dict[str, Any], n_cams: int,
-              opt: OptimizationParams
+def rig_stats(tap_grad: torch.Tensor, aux: Dict[str, Any]
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The statistics terms of a rig step, (tap term, ``vis_count``):
-    with per-camera statistics the tap's gradient becomes Σ_b ‖g_b·B‖
-    (the batch loss is a mean over the B cameras) and the denominator
-    grows by ``vis_count``; otherwise the shared tap's gradient and no
-    count."""
-    if not opt.multicam_percam_stats:
+    """The statistics terms of a step, (tap term, ``vis_count``), by the
+    tap's shape: a per-camera tap's gradient [B,Nc,2] becomes
+    Σ_b ‖g_b·B‖ (the batch loss is a mean over the B cameras) and the
+    denominator grows by ``vis_count``; a shared tap's gradient [Nc,2]
+    is the term itself, with no count."""
+    if tap_grad.dim() == 2:
         return tap_grad, None
-    return (torch.linalg.norm(tap_grad[..., :2] * n_cams, dim=-1).sum(0),
-            aux["vis_count"])
+    return (torch.linalg.norm(tap_grad[..., :2] * tap_grad.shape[0],
+                              dim=-1).sum(0), aux["vis_count"])
 
 
 def rig_update(state: TrainState, grads, tap_grad: torch.Tensor,
-               loss: torch.Tensor, aux: Dict[str, Any], n_cams: int,
+               loss: torch.Tensor, aux: Dict[str, Any],
                opt: OptimizationParams, spatial_lr_scale: float
                ) -> TrainState:
-    """``apply_param_update`` of a rig step: the terms of ``rig_stats``,
+    """``apply_param_update`` of a step: the terms of ``rig_stats``,
     every learning rate scaled by ``opt.multicam_lr_scale``."""
     spans.mark("update")
-    tap_term, vis_count = rig_stats(tap_grad, aux, n_cams, opt)
+    tap_term, vis_count = rig_stats(tap_grad, aux)
     return apply_param_update(state, grads, tap_term, loss, aux["radii"],
                               aux["visible"], opt, spatial_lr_scale,
                               lr_scale=opt.multicam_lr_scale,
                               vis_count=vis_count)
+
+
+def unscaled(opt: OptimizationParams) -> OptimizationParams:
+    """``opt`` as a single-camera step reads it: that step is the rig
+    step on a rig of one at the unscaled learning rates
+    (``multicam_lr_scale`` 1)."""
+    return replace(opt, multicam_lr_scale=1.0)
 
 
 @spans.step
@@ -384,13 +341,23 @@ def train_step_multicam(state: TrainState, cameras: Sequence[Camera],
                         ) -> Tuple[TrainState, Dict[str, Any]]:
     """One optimizer step over a rig of same-time cameras: one field
     evaluation, ``len(cameras)`` rasterizations."""
-    cameras = list(cameras)
-    loss, aux, tree, tap = step_forward(state, cameras, stage,
+    loss, aux, tree, tap = step_forward(state, list(cameras), stage,
                                         active_sh_degree, hp, opt, pipe, cfg,
                                         bg)
     grads, tap_grad = step_gradients(loss, tree, tap)
-    return rig_update(state, grads, tap_grad, loss.detach(), aux,
-                      len(cameras), opt, spatial_lr_scale), aux
+    return rig_update(state, grads, tap_grad, loss.detach(), aux, opt,
+                      spatial_lr_scale), aux
+
+
+def train_step(state: TrainState, camera: Camera, stage: str,
+               active_sh_degree: int, hp: ModelHiddenParams,
+               opt: OptimizationParams, pipe: PipelineParams,
+               cfg: RasterConfig, spatial_lr_scale: float, bg: torch.Tensor
+               ) -> Tuple[TrainState, Dict[str, Any]]:
+    """One optimizer step on one camera, stage "coarse" or "fine": the
+    rig step on ``[camera]`` under ``unscaled(opt)``."""
+    return train_step_multicam(state, [camera], stage, active_sh_degree, hp,
+                               unscaled(opt), pipe, cfg, spatial_lr_scale, bg)
 
 
 def small_aux(aux: Dict[str, Any]) -> Dict[str, Any]:

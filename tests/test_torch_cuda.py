@@ -1128,10 +1128,10 @@ def test_cuda_sweep_renders_never_wait_for_the_host(cuda_device):
     sh, hp, opt, pipe, cfg, _, bg = args
     rig_fn = video._sweep_render(state.pool, state.deform, pipe, bg,
                                  state.aabb, sh, "fine", cfg, True, True,
-                                 True, True, False)
+                                 True, False)
     flow_fn = video._sweep_render(state.pool, state.deform, pipe, bg,
                                   state.aabb, sh, "fine", cfg, False, False,
-                                  False, False, False)
+                                  False, False)
     rig = [video._slim(c, True) for c in cams]
     one = [video._slim(cams[0], False)]
     colors = torch.rand((state.pool.capacity, 3), device=cuda_device)

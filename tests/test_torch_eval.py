@@ -151,17 +151,16 @@ def sweep(tmp_path_factory):
         lpips_jax._load_weights.cache_clear()
         j_video._jit_render.cache_clear()
         j_video._jit_render_mc.cache_clear()
-        calls = {"multicam": 0, "render": 0}
+        calls = {"rig": 0, "camera": 0}
+        render_multicam = t_video.render_multicam
 
-        def count(name, fn):
-            def wrapped(*a, **k):
-                calls[name] += 1
-                return fn(*a, **k)
-            return wrapped
+        def counted(cams, *a, **k):
+            calls["rig" if len(cams) > 1 else "camera"] += 1
+            return render_multicam(cams, *a, **k)
 
-        mp.setattr(t_video, "render_multicam",
-                   count("multicam", t_video.render_multicam))
-        mp.setattr(t_video, "render", count("render", t_video.render))
+        # every sweep render is one of ``render_multicam``: a rig, or a
+        # lone camera as a rig of one
+        mp.setattr(t_video, "render_multicam", counted)
         out = {}
         for name, (jc, tc) in (("grouped", grouped), ("loose", loose)):
             before = dict(calls)
@@ -199,8 +198,8 @@ def test_render_pixels_takes_the_rig_or_camera_branch(sweep, split):
     calls = sweep.out[split][2]
     n = 9 if split == "grouped" else 4
     # grouped: 3 rig renders + 2 flow renders a camera; loose: per camera
-    assert calls == ({"multicam": 3, "render": 2 * n} if split == "grouped"
-                     else {"multicam": 0, "render": 3 * n})
+    assert calls == ({"rig": 3, "camera": 2 * n} if split == "grouped"
+                     else {"rig": 0, "camera": 3 * n})
 
 
 @pytest.mark.parametrize("split", ["grouped", "loose"])

@@ -3,9 +3,8 @@ evaluation for B same-time cameras, the losses pooled over the stacked
 renders, the per-camera screen-gradient statistics and
 ``multicam_lr_scale``.
 
-  * B=1 equals the single-camera step within the port: loss rtol 1e-6,
-    gradients rtol 2e-5 atol 1e-7, radii equal (``tests/test_multicam.py``'s
-    tolerances);
+  * B=1 equals the single-camera step within the port bit for bit,
+    with and without the feature pass and the pre-deformation cull;
   * the port's and the JAX package's rig steps from one mid-training
     state (``test_torch_train.py``'s: non-zero moments, count 5, step
     40, non-zero statistics): a yawed B=3 rig in the fine stage with the
@@ -34,8 +33,11 @@ from s3gaussian_tpu.data.cameras import stack_cameras
 from s3gaussian_tpu.train import trainer as jtr
 from s3gaussian_tpu_torch import config as tcfg
 from s3gaussian_tpu_torch.data.cameras import make_camera as t_make_camera
+from s3gaussian_tpu_torch.eval import video
 from s3gaussian_tpu_torch.ops import tile_kernels as ttk
+from s3gaussian_tpu_torch.render.renderer import render
 from s3gaussian_tpu_torch.train import trainer as ttr
+from s3gaussian_tpu_torch.train.checkpoints import state_tensors
 from s3gaussian_tpu_torch.weights import train_state_from_numpy
 
 from test_torch_train import (CAP, H, J_HP, J_PIPE, SPATIAL_LR_SCALE, T_HP,
@@ -129,30 +131,44 @@ def test_rig_step_matches_jax(jax_state, case):
             inc, taux["visible"].numpy().astype(np.float32))
 
 
-def test_b1_rig_equals_the_single_step(jax_state):
+@pytest.mark.parametrize("cull", [False, True], ids=["pool", "culled"])
+@pytest.mark.parametrize("feat", [False, True], ids=["rgb", "feat"])
+def test_b1_rig_equals_the_single_step(jax_state, feat, cull):
+    """A rig of one and the bare camera give the same step bit for bit:
+    loss, metrics, every gradient, the tap's, radii, visibility and the
+    counters; and the rig of one's statistics terms are the shared
+    tap's norm and the visibility."""
     state = train_state_from_numpy(np_tree(jax_state), T_HP, device="cpu")
-    (_, cam), = rig(0.3, yaws=(5.0,), shifts=(0.0,))
+    (_, cam), = rig(0.3, yaws=(5.0,), shifts=(0.0,), feat=feat)
+    cfg = dataclasses.replace(T_CFG, cull_before_deform=cull,
+                              cull_margin_px=8.0)
     opt = tcfg.OptimizationParams()
     out = {}
     for key, camera in (("one", cam), ("rig", [cam])):
         loss, aux, tree, tap = ttr.step_forward(state, camera, "fine", 3, T_HP,
-                                                opt, T_PIPE, T_CFG,
+                                                opt, T_PIPE, cfg,
                                                 torch.zeros(3))
         grads, tap_grad = ttr.step_gradients(loss, tree, tap)
         out[key] = (loss, aux, grads, tap_grad)
     (l1, a1, g1, t1), (lb, ab, gb, tb) = out["one"], out["rig"]
     assert tb.shape == (1,) + tuple(t1.shape)
-    np.testing.assert_allclose(lb.item(), l1.item(), rtol=1e-6)
+    assert torch.equal(lb, l1)
+    assert ("feat" in a1["metrics"]) == feat
+    assert ab["metrics"].keys() == a1["metrics"].keys()
+    for k, v in a1["metrics"].items():
+        assert torch.equal(ab["metrics"][k], v), k
     for group in g1:
         for k, v in g1[group].items():
-            np.testing.assert_allclose(gb[group][k].numpy(), v.numpy(),
-                                       rtol=2e-5, atol=1e-7,
-                                       err_msg=f"{group}.{k}")
-    np.testing.assert_allclose(tb[0].numpy(), t1.numpy(), rtol=2e-5,
-                               atol=1e-7)
-    np.testing.assert_array_equal(ab["radii"].numpy(), a1["radii"].numpy())
-    np.testing.assert_array_equal(ab["vis_count"].numpy(),
-                                  a1["visible"].numpy().astype(np.float32))
+            assert torch.equal(gb[group][k], v), f"{group}.{k}"
+    assert torch.equal(tb[0], t1)
+    for k in ("radii", "visible", "vis_count", "n_pairs", "overflow_rect",
+              "overflow_visible", "overflow_pairs"):
+        assert torch.equal(ab[k], a1[k]), k
+    assert torch.equal(a1["vis_count"], a1["visible"].to(torch.float32))
+    term, count = ttr.rig_stats(tb, ab)
+    assert torch.equal(term, torch.linalg.norm(t1[:, :2], dim=-1))
+    assert torch.equal(count, a1["visible"].to(torch.float32))
+    assert ttr.rig_stats(t1, a1) == (t1, None)
 
 
 def test_rig_step_descends_on_a_fixed_rig(jax_state):
@@ -168,3 +184,73 @@ def test_rig_step_descends_on_a_fixed_rig(jax_state):
         losses.append(aux["metrics"]["loss"].item())
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert int(state.nan_skips) == 0 and int(state.step) == 43
+
+
+def _stepped(jax_state, step, camera, **opt_kw):
+    """The state tensors after one fine ``step`` on ``camera`` from
+    ``jax_state`` (a step writes into its state's own tensors)."""
+    state = train_state_from_numpy(np_tree(jax_state), T_HP, device="cpu")
+    state, _ = step(state, camera, "fine", 3, T_HP,
+                    tcfg.OptimizationParams(**opt_kw), T_PIPE, T_CFG,
+                    SPATIAL_LR_SCALE, torch.zeros(3))
+    return state_tensors(state)
+
+
+def _assert_equal_states(got, want):
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+ONE_PATH_CASES = ("train_step_ignores_the_rig_lr_scale",
+                  "rig_of_one_applies_the_rig_lr_scale",
+                  "override_color_renders_the_whole_pool",
+                  "flow_render_returns_no_dx")
+
+
+@pytest.mark.parametrize("case", ONE_PATH_CASES)
+def test_one_view_path_keeps_each_form(jax_state, case):
+    """What the single-camera forms keep of their own on the one view
+    path: ``train_step`` ignores ``multicam_lr_scale`` while the rig of
+    one applies it; ``render`` with ``override_color`` under
+    ``cull_before_deform`` renders the whole pool, not a working set;
+    the sweep's flow render returns no ``dx``."""
+    (_, cam), = rig(0.3, yaws=(5.0,), shifts=(0.0,))
+    if case == "train_step_ignores_the_rig_lr_scale":
+        _assert_equal_states(
+            _stepped(jax_state, ttr.train_step, cam, multicam_lr_scale=2.0),
+            _stepped(jax_state, ttr.train_step, cam))
+        return
+    if case == "rig_of_one_applies_the_rig_lr_scale":
+        unscaled = _stepped(jax_state, ttr.train_step_multicam, [cam])
+        _assert_equal_states(unscaled,
+                             _stepped(jax_state, ttr.train_step, cam))
+        scaled = _stepped(jax_state, ttr.train_step_multicam, [cam],
+                          multicam_lr_scale=2.0)
+        assert not torch.equal(scaled["pool.xyz"], unscaled["pool.xyz"])
+        for k in ("stats.xyz_grad_accum", "stats.denom"):
+            assert torch.equal(scaled[k], unscaled[k]), k
+        return
+    state = train_state_from_numpy(np_tree(jax_state), T_HP, device="cpu")
+    args = (state.pool, state.deform, T_PIPE, torch.zeros(3), state.aabb, 3)
+    culled = dataclasses.replace(T_CFG, cull_before_deform=True,
+                                 cull_margin_px=8.0, max_visible=CAP // 2)
+    colors = torch.rand((CAP, 3), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        if case == "override_color_renders_the_whole_pool":
+            got = render(cam, *args, override_color=colors, cfg=culled)
+            want = render(cam, *args, override_color=colors,
+                          cfg=dataclasses.replace(culled,
+                                                  cull_before_deform=False))
+            assert torch.equal(got["alive_work"], state.pool.alive)
+            assert torch.equal(got["render"], want["render"])
+            assert render(cam, *args, cfg=culled)["alive_work"].shape == (
+                CAP // 2,)
+            return
+        one = [video._slim(cam, False)]
+        flow = video._sweep_render(*args, "fine", T_CFG, False, False, False,
+                                   False)(one, override_color=colors)
+        frame = video._sweep_render(*args, "fine", T_CFG, False, True, False,
+                                    False)(one)
+    assert "dx" not in flow and flow["render"].shape == (1, H, W, 3)
+    assert frame["dx"].shape == (CAP, 3)

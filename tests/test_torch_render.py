@@ -117,7 +117,7 @@ def test_fine_render_matches_jax(scene, yaw, time):
                     return_decomposition=True, return_dx=True)
     got = t_render(tc, tpool, tdeform, pipe, torch.from_numpy(bg),
                    torch.from_numpy(AABB), 3, stage="fine", cfg=CFG,
-                   return_decomposition=True, return_dx=True)
+                   return_decomposition=True)
     for k in ("render", "depth", "render_d", "depth_d", "render_s",
               "depth_s"):
         _close(got[k], want[k], msg=k)
@@ -206,8 +206,7 @@ def test_unported_options_raise(scene):
                     cfg=cfg)
     with torch.no_grad():
         got = t_render(tc, tpool, tdeform, PipelineParams(), torch.zeros(3),
-                       torch.from_numpy(AABB), 3, stage="fine",
-                       return_dx=True, cfg=cfg)
+                       torch.from_numpy(AABB), 3, stage="fine", cfg=cfg)
     for k in ("render", "depth"):
         _close(got[k], want[k], msg=k)
     for k in ("radii", "alive_work"):
