@@ -35,6 +35,18 @@ last line):
      the forward and the four backward launches timed beside their DRAM
      bound (the bytes their work requires) and a gather-traffic ceiling,
      and the query's forward and backward through both paths;
+  3d. the projection and SH kernels (``csrc/project.cu``: covariance, EWA
+     projection and SH colour, forward and backward) against the plain
+     path (``ops/project.py``: ``build_cov3d`` + ``project_gaussians``,
+     ``sh_to_color_plain`` on the card) at 2,097,152 rows through a
+     headline camera, the train path's options (tight rect, tap, alive,
+     SH degree 3 held on the device): rects, radii, visibility, xy,
+     depth, conic and colours bit for bit, every gradient (the SH
+     colour's position gradient from a leaf of its own) within atol
+     1e-5·max|plain|, rtol 1e-4, max|plain| taken apart over the visible
+     rows and over the rest, a backward repeated bit for bit; each kernel
+     timed in a captured graph beside its DRAM bound (the bytes its work
+     requires) and the plain path's forward and backward;
   4. the render path: the headline scene of ``bench.py`` (200,000
      LiDAR-like Gaussians in a 204,800 pool, SH degree 3, default
      deformation field) rendered at 640x960 through ``render()`` for 3 rig
@@ -316,6 +328,34 @@ SEGSUM_ATOL = 1e-6
 HEX_ROWS, HEX_TIME = 2_097_152, 0.4
 HEX_COORD_ATOL, HEX_COORD_RTOL = 1e-5, 1e-4
 HEX_KERNELS = ("hexplane_fwd", "hexplane_bwd")
+# phase 3d: the projection and SH kernels at the same row count; the
+# gradients' tolerance (sums in another order than autograd's), its atol a
+# share of max|plain| over the visible rows and over the rest apart (rows
+# at the near plane reach ~1e7, an ordinary visible row ~30)
+PROJ_ROWS = 2_097_152
+PROJ_GRAD_ATOL, PROJ_GRAD_RTOL = 1e-5, 1e-4
+PROJ_KERNELS = ("project_fwd", "project_bwd", "sh_fwd", "sh_bwd")
+# each kernel's outputs as phase 3d compares them
+PROJ_OUTPUTS = {"project_fwd": ("xy", "depth", "conic"),
+                "project_bwd": ("d_means3d", "d_scales", "d_rotations",
+                                "d_tap"),
+                "sh_fwd": ("colour",),
+                "sh_bwd": ("d_shs", "d_sh_means3d")}
+# the JAX functions each replaces (no Pallas kernel: XLA fuses them)
+PROJ_REPLACES = {"project_fwd": "s3gaussian_tpu/ops/project.py:79",
+                 "project_bwd": "s3gaussian_tpu/ops/project.py:79",
+                 "sh_fwd": "s3gaussian_tpu/ops/project.py:243",
+                 "sh_bwd": "s3gaussian_tpu/ops/project.py:243"}
+# bytes a row each kernel's work requires: project_fwd reads means,
+# scales, quaternion, tap, opacity and alive (53) and writes xy, depth,
+# conic, radius, rect and visibility (45); project_bwd reads the three
+# inputs and the xy/depth/conic cotangents (64) and writes the means',
+# scales', quaternion's and tap's gradients (48); sh_fwd reads 16x3
+# coefficients and the position (204) and writes the colour (12);
+# sh_bwd reads them and the colour's cotangent (216) and writes the
+# coefficients' and the position's gradients (204)
+PROJ_ROW_BYTES = {"project_fwd": 98, "project_bwd": 112, "sh_fwd": 216,
+                  "sh_bwd": 420}
 LPIPS_FIXTURE = os.path.join(REPO, "tests", "fixtures",
                              "lpips_alex_fixture.npz")
 # the CLI's device memory after a step may not grow across the fine stage
@@ -908,6 +948,192 @@ def hexplane_phase(torch, su, card):
                              "bound": fwd_bound, "max_err": fwd_err},
             "hexplane_bwd": {"ms": bwd_ms, "plain_ms": plain_bwd_ms,
                              "bound": bwd_bound, "max_err": coord_err}}
+
+
+def graph_ms(torch, fn, reps=10):
+    """Device ms a call of ``fn`` from one replay of ``reps`` calls
+    captured as a CUDA graph: launches that take less time than their
+    Python wrapper, timed back to back as the captured train step runs
+    them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return a.elapsed_time(b) / reps
+
+
+def project_phase(torch, su, card):
+    """Phase 3d: the projection and SH kernels (``csrc/project.cu``,
+    through ``ops/project.py::project`` and ``sh_to_color``) against the
+    plain path on the card (``build_cov3d`` + ``project_gaussians``,
+    ``sh_to_color_plain``) at PROJ_ROWS rows spread through and beyond the
+    headline camera's frustum (a tenth behind it, a tenth not alive),
+    with the train path's options: tight rect, NDC tap, alive mask, SH
+    degree 3 as a 0-d int32 tensor.  Rects, radii, visibility, xy, depth,
+    conic and colours bit for bit (the kernels repeat the plain arithmetic
+    as this build of PyTorch runs it on the card: another build fails
+    here first); every input's gradient within PROJ_GRAD_ATOL·max|plain|
+    + PROJ_GRAD_RTOL·|plain|, max|plain| taken over the visible rows and
+    over the rest apart, so that the near plane's rows do not set the
+    scale of the ordinary ones; the SH colour's position gradient from a
+    leaf of its own, apart from the projection's; a backward repeated bit
+    for bit.  Times each kernel alone, back to back in a captured CUDA
+    graph (``graph_ms``: a launch is shorter than its wrapper's Python),
+    beside its DRAM bound (PROJ_ROW_BYTES a row at HBM rate), and the
+    plain path's forward (under no_grad) and backward (``autograd.grad``
+    on a saved forward) for the projection and the SH colour.  Returns
+    each kernel's fields: its outputs' max abs error and that error as a
+    share of max|plain|."""
+    from s3gaussian_tpu_torch.ops import project as pj
+
+    dev = su.bg.device
+    n = PROJ_ROWS
+    cam = rig_camera(torch, dev, 0.0, 0.4, H, W)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    z = rand(n) * 60.0 - 6.0
+    means = torch.stack([(rand(n) * 2.4 - 1.2) * z.abs() * 0.6,
+                         (rand(n) * 2.4 - 1.2) * z.abs() * 0.6, z], 1)
+    scales = torch.exp(rand(n, 3) * 4.0 - 5.0)
+    quats = torch.randn((n, 4), generator=gen, device=dev)
+    opac = rand(n) * 0.98 + 0.01
+    alive = rand(n) > 0.1
+    tap = torch.zeros((n, 2), device=dev)
+    shs = 0.5 * torch.randn((n, 16, 3), generator=gen, device=dev)
+    deg = torch.tensor(3, dtype=torch.int32, device=dev)
+    view, proj = cam.world_view, cam.full_proj
+    tx, ty = cam.tanfovx, cam.tanfovy
+    cots = [torch.randn(shape, generator=gen, device=dev)
+            for shape in ((n, 2), (n,), (n, 3), (n, 3))]
+
+    def plain_project(m, s, q, *a, **k):
+        return pj.project_gaussians(m, pj.build_cov3d(s, q), *a, **k)
+
+    def run(proj_fn, sh_fn):
+        """Outputs and the gradients of (means3d, scales, rotations, tap,
+        shs, the SH colour's means3d)."""
+        xs = [x.detach().requires_grad_(True)
+              for x in (means, scales, quats, tap, shs, means)]
+        out = proj_fn(*xs[:3], view, proj, tx, ty, W, H, mean2d_tap=xs[3],
+                      alive=alive, opacities=opac)
+        rgb = sh_fn(xs[4], xs[5], cam.campos, deg)
+        grads = torch.autograd.grad((out.xy, out.depth, out.conic, rgb), xs,
+                                    cots)
+        return out, rgb.detach(), grads
+
+    got = run(pj.project, pj.sh_to_color)
+    again = run(pj.project, pj.sh_to_color)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got[2], again[2])),
+          "3d: the projection and SH backward not deterministic")
+    del again
+    want = run(plain_project, pj.sh_to_color_plain)
+    torch.cuda.synchronize()
+    for name in ("radius", "tiles_rect", "visible"):
+        a, b = getattr(got[0], name), getattr(want[0], name)
+        check(torch.equal(a, b), f"3d: {name} differs from the plain "
+              f"path's in {int((a != b).sum())} entries")
+    errs = {}
+    for name, a, b in (("xy", got[0].xy, want[0].xy),
+                       ("depth", got[0].depth, want[0].depth),
+                       ("conic", got[0].conic, want[0].conic),
+                       ("colour", got[1], want[1])):
+        a, b = a.detach(), b.detach()
+        err = float((a - b).abs().max())
+        check(torch.equal(a, b), f"3d: {name} differs from the plain path's "
+              f"in {int((a != b).sum())} entries, by up to {err:.3e}")
+        errs[name] = (err, err / max(float(b.abs().max()), 1e-30))
+    vis = want[0].visible
+    for name, a, b in zip(PROJ_OUTPUTS["project_bwd"]
+                          + PROJ_OUTPUTS["sh_bwd"], got[2], want[2]):
+        err = (a - b).abs()
+        worst = share = 0.0
+        for rows, what in ((vis, "visible"), (~vis, "other")):
+            scale = float(b[rows].abs().max())
+            e = float(err[rows].max())
+            check(bool((err[rows] <= PROJ_GRAD_ATOL * scale
+                        + PROJ_GRAD_RTOL * b[rows].abs()).all()),
+                  f"3d: {name} differs by {e:.3e} on the {what} rows "
+                  f"(their scale {scale:.3e})")
+            worst, share = max(worst, e), max(share, e / max(scale, 1e-30))
+        errs[name] = (worst, share)
+    n_vis = int(vis.sum())
+    del got, want, vis
+
+    # each kernel alone, on the inputs as the wrappers pass them
+    quats_k = pj._aligned(quats)
+    dims = (W, H, su.cfg.tile_x, su.cfg.tile_y)
+    ms = {}
+    ms["project_fwd"] = graph_ms(torch, lambda: pj.project_fwd(
+        means, scales, quats_k, tap, view, proj, tx, ty, alive, opac, dims,
+        0.0))
+    ms["project_bwd"] = graph_ms(torch, lambda: pj.project_bwd(
+        means, scales, quats_k, view, proj, tx, ty, dims, cots[0], cots[1],
+        cots[2], (True, True, True, True)))
+    ms["sh_fwd"] = graph_ms(torch, lambda: pj.sh_fwd(
+        shs, means, cam.campos, deg))
+    ms["sh_bwd"] = graph_ms(torch, lambda: pj.sh_bwd(
+        shs, means, cam.campos, deg, cots[3]))
+
+    def plain_proj(m, s, q, t, sh):
+        out = plain_project(m, s, q, view, proj, tx, ty, W, H, mean2d_tap=t,
+                            alive=alive, opacities=opac)
+        return out.xy, out.depth, out.conic
+
+    def plain_sh(m, s, q, t, sh):
+        return (pj.sh_to_color_plain(sh, m, cam.campos, deg),)
+
+    def plain_ms(fn, cot):
+        """The plain forward under no_grad, then its backward alone."""
+        inputs = (means, scales, quats, tap, shs)
+        with torch.no_grad():
+            fwd = cuda_ms(torch, lambda: fn(*inputs), reps=3, warmup=1)
+        xs = [x.detach().requires_grad_(True) for x in inputs]
+        outs = fn(*xs)
+        bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            outs, xs, cot, retain_graph=True, allow_unused=True), reps=3,
+            warmup=1)
+        return fwd, bwd
+
+    plain = dict(zip(PROJ_KERNELS, plain_ms(plain_proj, cots[:3])
+                     + plain_ms(plain_sh, cots[3:])))
+    out = {}
+    for name in PROJ_KERNELS:
+        n_bytes = n * PROJ_ROW_BYTES[name]
+        bnd = bound(n_bytes, 0)
+        own = [errs[k] for k in PROJ_OUTPUTS[name]]
+        out[name] = {"ms": ms[name], "plain_ms": plain[name], "bound": bnd,
+                     "max_err": max(e for e, _ in own),
+                     "max_err_share": max(r for _, r in own)}
+        print(f"{name} vs plain: {n} rows ({n_vis} visible), kernel "
+              f"{ms[name]:.4f} ms, DRAM bound {n_bytes} bytes -> "
+              f"{bnd[0]:.4f} ms ({bnd[0] / ms[name]:.3f} of it), plain "
+              f"{plain[name]:.3f} ms ({card})", flush=True)
+    print("3d: rects, radii, visibility, xy, depth, conic and colours equal "
+          "to the plain path's; the gradients' max abs errors (as a share "
+          "of max|plain| over the visible rows or the rest): " + ", ".join(
+              f"{k} {errs[k][0]:.3e} ({errs[k][1]:.3e})"
+              for k in PROJ_OUTPUTS["project_bwd"] + PROJ_OUTPUTS["sh_bwd"])
+          + "; the same bits on repeat", flush=True)
+    del means, scales, quats, quats_k, opac, alive, tap, shs, cots
+    torch.cuda.empty_cache()
+    return out
 
 
 def state_to(torch, state, dev):
@@ -3551,8 +3777,15 @@ def graph_phase(torch, su, state, card):
               f"replays and the capture's warm-up step of {b} camera(s)")
         # a step's marks; one field evaluation a step: a forward and a
         # backward a scale
+        # the projection a rasterize pass (and a camera of the cull), the
+        # SH colour a camera
+        passes = int(aux_g["raster_passes"].reshape(-1)[0])
+        culls = b if su.cfg.cull_before_deform else 0
         for kernel, want in (("span_mark", n_marks), ("hexplane_fwd", 1),
-                             ("hexplane_bwd", len(su.hp.multires))):
+                             ("hexplane_bwd", len(su.hp.multires)),
+                             ("project_fwd", passes + culls),
+                             ("project_bwd", passes), ("sh_fwd", b),
+                             ("sh_bwd", b)):
             check(cap[kernel] == want and got[kernel] == (n + 1) * want,
                   f"{what}: {cap[kernel]} {kernel} launches captured and "
                   f"{got[kernel]} launched for {n} replays and a warm-up "
@@ -3595,7 +3828,8 @@ def graph_phase(torch, su, state, card):
               f"{res_e:.2f} GiB; {cap['composite_fwd']} forward / "
               f"{cap['composite_bwd']} backward launches a replay, "
               f"{cap['hexplane_fwd']} + {cap['hexplane_bwd']} hexplane "
-              f"launches; {n_marks} span marks a step, "
+              f"launches, " + " / ".join(str(cap[k]) for k in PROJ_KERNELS)
+              + f" {' / '.join(PROJ_KERNELS)}; {n_marks} span marks a step, "
               f"{mark_ms:.4f} device ms a step in {marks_g:.0f} span_mark "
               f"kernels, the spans' sum {cover:.4f} of the CUDA-event time "
               f"({card})", flush=True)
@@ -3873,6 +4107,8 @@ def main(only=None) -> int:
     seg = segsum_phase(torch, su, card)
     # 3c. the hexplane kernels vs plain at the benchmark's pool size
     hexk = hexplane_phase(torch, su, card)
+    # 3d. the projection and SH kernels vs plain at the same row count
+    projk = project_phase(torch, su, card)
 
     # 4. the render path through the user entry points, launches counted
     # (the segment-sum launches from here on, but for the comparisons of
@@ -4025,7 +4261,7 @@ def main(only=None) -> int:
 
     seg_compare = tk.launches["segment_sum"]
     mark_compare = tk.launches["span_mark"]
-    hex_compare = {k: tk.launches[k] for k in HEX_KERNELS}
+    kernel_compare = {k: tk.launches[k] for k in HEX_KERNELS + PROJ_KERNELS}
     # 6. small scene: GPU vs CPU (plain compositors): render + train step,
     # with the field made anew from its seed, then the renders with the
     # field phase 5 trained in place
@@ -4144,7 +4380,8 @@ def main(only=None) -> int:
 
     seg_compare = tk.launches["segment_sum"] - seg_compare
     mark_compare = tk.launches["span_mark"] - mark_compare
-    hex_compare = {k: tk.launches[k] - n for k, n in hex_compare.items()}
+    kernel_compare = {k: tk.launches[k] - n
+                      for k, n in kernel_compare.items()}
     del su, pool, deform, cams, small_pool, cpu_pool, s_gpu, s_cpu
     torch.cuda.empty_cache()
 
@@ -4225,13 +4462,14 @@ def main(only=None) -> int:
     check(seg_main > 0, "the path launched no segment-sum kernel")
     mark_main = tk.launches["span_mark"] - mark_compare
     check(mark_main > 0, "the path launched no span-mark kernel")
-    hex_main = {k: tk.launches[k] - n for k, n in hex_compare.items()}
-    check(all(hex_main.values()), f"the path's hexplane launches "
-          f"{hex_main}: a kernel never launched")
+    kernel_main = {k: tk.launches[k] - n for k, n in kernel_compare.items()}
+    check(all(kernel_main.values()), f"the path's hexplane, projection and "
+          f"SH launches {kernel_main}: a kernel never launched")
     print(f"segment-sum launches over this process's phases of the path: "
           f"{seg_main}; span-mark launches: {mark_main}; hexplane launches: "
-          f"forward {hex_main['hexplane_fwd']}, backward "
-          f"{hex_main['hexplane_bwd']}", flush=True)
+          f"forward {kernel_main['hexplane_fwd']}, backward "
+          f"{kernel_main['hexplane_bwd']}; " + ", ".join(
+              f"{k} {kernel_main[k]}" for k in PROJ_KERNELS), flush=True)
     print(f"smoke run: {time.time() - T_START:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -4289,8 +4527,26 @@ def main(only=None) -> int:
             "source": "s3gaussian_tpu_torch/csrc/hexplane.cu",
             # no Pallas kernel: the hexplane query XLA fuses, and its VJP
             "replaces": "s3gaussian_tpu/models/hexplane.py:69",
-            "launches": hex_main[name],
+            "launches": kernel_main[name],
             "max_abs_err": d["max_err"],
+            "ms": d["ms"],
+            "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound"][0],
+            "bound_by": d["bound"][1],
+            "library_ms": None,
+        })
+    for name in PROJ_KERNELS:
+        d = projk[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "s3gaussian_tpu_torch/csrc/project.cu",
+            # no Pallas kernel: the projection and SH colour XLA fuses,
+            # and their VJPs
+            "replaces": PROJ_REPLACES[name],
+            "launches": kernel_main[name],
+            "max_abs_err": d["max_err"],
+            "max_err_share": d["max_err_share"],
             "ms": d["ms"],
             "plain_ms": d["plain_ms"],
             "bound_ms": d["bound"][0],

@@ -5,6 +5,14 @@
 Conventions are the reference's: row-vector transforms (``p @ view``),
 NDC->pixel ``((ndc+1)*S - 1)/2``, +0.3 px low-pass on the 2D covariance,
 radius = ceil(3·sqrt(max eigenvalue)), near-plane cull at z <= 0.2.
+
+On the card ``project`` (``build_cov3d`` + ``project_gaussians``) and
+``sh_to_color`` run the CUDA kernels of ``csrc/project.cu``, forward and
+backward (``_Project``, ``_ShColor``), which repeat the plain code's
+arithmetic as PyTorch runs it on the card (its ``@`` and
+``torch.linalg.norm`` included), so tile rects, radii and visibility
+are equal there; CPU tensors take the plain code below.  A CUDA tensor
+launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from s3gaussian_tpu_torch.ops import tile_kernels as tk
 from s3gaussian_tpu_torch.ops.sh import eval_sh, eval_sh_dynamic
 
 
@@ -171,9 +180,9 @@ def project_gaussians(
                               visible=visible)
 
 
-def sh_to_color(shs: torch.Tensor, means3d: torch.Tensor,
-                campos: torch.Tensor,
-                active_degree: int | torch.Tensor) -> torch.Tensor:
+def sh_to_color_plain(shs: torch.Tensor, means3d: torch.Tensor,
+                      campos: torch.Tensor,
+                      active_degree: int | torch.Tensor) -> torch.Tensor:
     """SH [N, K, 3] -> clamped RGB along the view direction
     (``clamp_min(eval_sh(deg, sh, dir) + 0.5, 0)``).  A Python degree
     evaluates its bands alone; a 0-d tensor degree (the captured train
@@ -189,3 +198,314 @@ def sh_to_color(shs: torch.Tensor, means3d: torch.Tensor,
     else:
         rgb = eval_sh(active_degree, sh_view, dirs)
     return torch.clamp(rgb + 0.5, min=0.0)
+
+
+# --- the CUDA kernels of csrc/project.cu
+
+SH_COEFFS = (1, 4, 9, 16)     # the coefficient counts of degrees 0-3
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte address (the kernels' vector loads)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _fov(tan: float | torch.Tensor, size: int):
+    """A tan(fov/2) as the kernels take it: (0-d tensor or None, focal,
+    clamp bound); a Python float's focal and bound computed here in
+    double, as the plain path computes them."""
+    if isinstance(tan, torch.Tensor):
+        return tan, 0.0, 0.0
+    return None, size / (2.0 * tan), 1.3 * tan
+
+
+def _check_float(name: str, t, shape, dev) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {list(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, means3d on {dev}")
+
+
+def _check_camera(name: str, t) -> None:
+    if isinstance(t, torch.Tensor) and t.requires_grad \
+            and torch.is_grad_enabled():
+        raise ValueError(f"the projection kernels take no gradient to the "
+                         f"camera: {name} requires grad")
+
+
+def check_project(means3d: torch.Tensor, scales: torch.Tensor,
+                  rotations: torch.Tensor, view: torch.Tensor,
+                  proj: torch.Tensor, tanfovx: float | torch.Tensor,
+                  tanfovy: float | torch.Tensor,
+                  mean2d_tap: Optional[torch.Tensor] = None,
+                  alive: Optional[torch.Tensor] = None,
+                  opacities: Optional[torch.Tensor] = None) -> None:
+    """Raises (ValueError, TypeError) on what the projection kernels do not
+    take: means3d [N, 3], scales [N, 3] (activated), rotations [N, 4], view
+    and proj [4, 4], mean2d_tap [N, 2], opacities [N] or [N, 1], all
+    float32 on one device; alive [N] bool; tan(fov/2) a Python number or a
+    0-d float32 tensor there; no camera tensor that requires grad."""
+    if means3d.dim() != 2 or means3d.shape[1] != 3:
+        raise ValueError(f"means3d must be [N, 3], got "
+                         f"{tuple(means3d.shape)}")
+    n, dev = means3d.shape[0], means3d.device
+    _check_float("means3d", means3d, (n, 3), dev)
+    _check_float("scales", scales, (n, 3), dev)
+    _check_float("rotations", rotations, (n, 4), dev)
+    _check_float("view", view, (4, 4), dev)
+    _check_float("proj", proj, (4, 4), dev)
+    for name, tan in (("tanfovx", tanfovx), ("tanfovy", tanfovy)):
+        if isinstance(tan, torch.Tensor):
+            _check_float(name, tan, (), dev)
+        elif not isinstance(tan, (int, float)):
+            raise TypeError(f"{name} must be a number or a 0-d tensor, got "
+                            f"{type(tan).__name__}")
+        _check_camera(name, tan)
+    _check_camera("view", view)
+    _check_camera("proj", proj)
+    if mean2d_tap is not None:
+        _check_float("mean2d_tap", mean2d_tap, (n, 2), dev)
+    if opacities is not None:
+        _check_float("opacities", opacities.reshape(-1), (n,), dev)
+    if alive is not None:
+        if tuple(alive.shape) != (n,) or alive.dtype != torch.bool:
+            raise ValueError(f"alive must be [{n}] bool, got "
+                             f"{tuple(alive.shape)} {alive.dtype}")
+        if alive.device != dev:
+            raise ValueError(f"alive on {alive.device}, means3d on {dev}")
+
+
+def check_sh(shs: torch.Tensor, means3d: torch.Tensor, campos: torch.Tensor,
+             active_degree: int | torch.Tensor) -> None:
+    """Raises (ValueError, TypeError) on what the SH kernels do not take:
+    shs [N, K, 3] with K of SH_COEFFS, means3d [N, 3], campos [3], all
+    float32 on one device; a degree that is a Python int of 0 to the
+    coefficients' degree or a 0-d integer tensor there; no camera centre
+    that requires grad."""
+    if shs.dim() != 3 or shs.shape[1] not in SH_COEFFS or shs.shape[2] != 3:
+        raise ValueError(f"shs must be [N, K, 3] with K of {SH_COEFFS}, got "
+                         f"{tuple(shs.shape)}")
+    n, dev = shs.shape[0], shs.device
+    _check_float("shs", shs, shs.shape, dev)
+    if means3d.device != dev:
+        raise ValueError(f"means3d on {means3d.device}, shs on {dev}")
+    _check_float("means3d", means3d, (n, 3), dev)
+    if campos.device != dev:
+        raise ValueError(f"campos on {campos.device}, shs on {dev}")
+    _check_float("campos", campos, (3,), dev)
+    _check_camera("campos", campos)
+    max_deg = SH_COEFFS.index(shs.shape[1])
+    if isinstance(active_degree, torch.Tensor):
+        if active_degree.dim() != 0 or active_degree.is_floating_point() \
+                or active_degree.is_complex() \
+                or active_degree.dtype == torch.bool:
+            raise TypeError(f"a tensor degree must be a 0-d integer tensor, "
+                            f"got {tuple(active_degree.shape)} "
+                            f"{active_degree.dtype}")
+        if active_degree.device != dev:
+            raise ValueError(f"the degree on {active_degree.device}, shs on "
+                             f"{dev}")
+    elif not 0 <= active_degree <= max_deg:
+        raise ValueError(f"SH degree {active_degree} not in [0, {max_deg}] "
+                         f"for {shs.shape[1]} coefficients")
+
+
+def _launch(name: str, fn, *args) -> None:
+    """Call the C entry point ``fn`` on the current stream, a tensor
+    argument passed as its address, None as a null pointer; counted under
+    ``name``."""
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    tk._count(name)
+
+
+def project_fwd(means3d, scales, rotations, tap, view, proj, tanfovx,
+                tanfovy, alive, opacities, dims,
+                radius_margin) -> ProjectedGaussians:
+    """Launch the projection's forward kernel on checked, contiguous
+    inputs (opacities [N] or None); ``dims`` = (width, height, tile_x,
+    tile_y)."""
+    n, dev = means3d.shape[0], means3d.device
+    width, height, tile_x, tile_y = dims
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = ProjectedGaussians(
+        xy=torch.empty((n, 2), **f32), depth=torch.empty((n,), **f32),
+        conic=torch.empty((n, 3), **f32),
+        radius=torch.empty((n,), dtype=torch.int32, device=dev),
+        tiles_rect=torch.empty((n, 4), dtype=torch.int32, device=dev),
+        visible=torch.empty((n,), dtype=torch.bool, device=dev))
+    tx, fx, lx = _fov(tanfovx, width)
+    ty, fy, ly = _fov(tanfovy, height)
+    lib = tk._load("project")
+    _launch("project_fwd", lib.project_fwd, means3d, scales, rotations,
+            tap, alive, opacities, view, proj, tx, ty, fx,
+            fy, lx, ly, n, width, height, tile_x, tile_y,
+            float(radius_margin), *out)
+    return out
+
+
+def project_bwd(means3d, scales, rotations, view, proj, tanfovx, tanfovy,
+                dims, g_xy, g_depth, g_conic,
+                need=(True, True, True, False)):
+    """Launch the projection's backward kernel: the cotangents of xy, depth
+    and conic (each None where it has none) -> (d_means3d, d_scales,
+    d_rotations, d_tap), each None where ``need`` says so."""
+    n, dev = means3d.shape[0], means3d.device
+    width, height = dims[:2]
+    outs = [torch.empty((n, k), dtype=torch.float32, device=dev)
+            if want else None for want, k in zip(need, (3, 3, 4, 2))]
+    tx, fx, lx = _fov(tanfovx, width)
+    ty, fy, ly = _fov(tanfovy, height)
+    lib = tk._load("project")
+    _launch("project_bwd", lib.project_bwd, means3d, scales, rotations, view,
+            proj, tx, ty, fx, fy, lx, ly, n, width, height,
+            *(None if g is None else g.contiguous()
+              for g in (g_xy, g_depth, g_conic)),
+            *outs)
+    return tuple(outs)
+
+
+class _Project(torch.autograd.Function):
+    """``project_fwd`` with ``project_bwd`` as its backward.  Saves only its
+    inputs (the backward recomputes the rest); the radius, rects and
+    visibility are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, rotations, tap, view, proj, tanfovx,
+                tanfovy, alive, opacities, dims, radius_margin):
+        out = project_fwd(means3d, scales, rotations, tap, view, proj,
+                          tanfovx, tanfovy, alive, opacities, dims,
+                          radius_margin)
+        fov = [t if isinstance(t, torch.Tensor) else None
+               for t in (tanfovx, tanfovy)]
+        ctx.save_for_backward(means3d, scales, rotations, view, proj, *fov)
+        ctx.fov = [None if isinstance(t, torch.Tensor) else t
+                   for t in (tanfovx, tanfovy)]
+        ctx.dims = dims
+        ctx.mark_non_differentiable(out.radius, out.tiles_rect, out.visible)
+        ctx.set_materialize_grads(False)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, g_xy, g_depth, g_conic, *_):
+        means3d, scales, rotations, view, proj, *fov = ctx.saved_tensors
+        tanfovx, tanfovy = (t if t is not None else f
+                            for t, f in zip(fov, ctx.fov))
+        need = ctx.needs_input_grad[:4]
+        if (g_xy is None and g_depth is None and g_conic is None) \
+                or not any(need):
+            return (None,) * 12
+        grads = project_bwd(means3d, scales, rotations, view, proj, tanfovx,
+                            tanfovy, ctx.dims, g_xy, g_depth, g_conic, need)
+        return (*grads, *(None,) * 8)
+
+
+def project(means3d: torch.Tensor, scales: torch.Tensor,
+            rotations: torch.Tensor, view: torch.Tensor, proj: torch.Tensor,
+            tanfovx: float | torch.Tensor, tanfovy: float | torch.Tensor,
+            width: int, height: int, tile_x: int = 16, tile_y: int = 16,
+            mean2d_tap: Optional[torch.Tensor] = None,
+            alive: Optional[torch.Tensor] = None,
+            radius_margin: float = 0.0,
+            opacities: Optional[torch.Tensor] = None) -> ProjectedGaussians:
+    """``project_gaussians`` of ``build_cov3d(scales, rotations)``
+    (scales activated, rotations as given: normalised here): on CPU tensors that plain code, on CUDA tensors the kernels of
+    ``csrc/project.cu`` (``check_project`` says what they take), the same
+    rects, radii and visibility, differentiable to means3d, scales,
+    rotations and mean2d_tap."""
+    if means3d.device.type == "cpu":
+        return project_gaussians(
+            means3d, build_cov3d(scales, rotations), view,
+            proj, tanfovx, tanfovy, width, height, tile_x=tile_x,
+            tile_y=tile_y, mean2d_tap=mean2d_tap, alive=alive,
+            radius_margin=radius_margin, opacities=opacities)
+    if means3d.device.type != "cuda":
+        raise ValueError(f"the projection runs on CPU or CUDA tensors, not "
+                         f"{means3d.device}")
+    check_project(means3d, scales, rotations, view, proj, tanfovx, tanfovy,
+                  mean2d_tap, alive, opacities)
+    op = (None if opacities is None
+          else opacities.detach().reshape(-1).contiguous())
+    return ProjectedGaussians(*_Project.apply(
+        means3d.contiguous(), scales.contiguous(), _aligned(rotations),
+        None if mean2d_tap is None else mean2d_tap.contiguous(),
+        view.contiguous(), proj.contiguous(), tanfovx, tanfovy,
+        None if alive is None else alive.contiguous(), op,
+        (width, height, tile_x, tile_y), radius_margin))
+
+
+def sh_fwd(shs, means3d, campos, degree) -> torch.Tensor:
+    """Launch the SH colour's forward kernel on checked inputs (shs
+    16-byte aligned, a tensor degree int32) -> [N, 3]."""
+    n = shs.shape[0]
+    out = torch.empty((n, 3), dtype=torch.float32, device=shs.device)
+    tensor = isinstance(degree, torch.Tensor)
+    lib = tk._load("project")
+    _launch("sh_fwd", lib.sh_fwd, shs, shs.shape[1], means3d, campos, n,
+            0 if tensor else int(degree), degree if tensor else None, out)
+    return out
+
+
+def sh_bwd(shs, means3d, campos, degree, g, want_means=True):
+    """Launch the SH colour's backward kernel: the colours' cotangent g
+    [N, 3] -> (d_shs [N, K, 3], d_means3d [N, 3] or None)."""
+    n = shs.shape[0]
+    d_shs = torch.empty_like(shs)
+    d_means = (torch.empty((n, 3), dtype=torch.float32, device=shs.device)
+               if want_means else None)
+    tensor = isinstance(degree, torch.Tensor)
+    lib = tk._load("project")
+    _launch("sh_bwd", lib.sh_bwd, shs, shs.shape[1], means3d, campos, n,
+            0 if tensor else int(degree), degree if tensor else None,
+            g.contiguous(), d_shs, d_means)
+    return d_shs, d_means
+
+
+class _ShColor(torch.autograd.Function):
+    """``sh_fwd`` with ``sh_bwd`` as its backward; saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, shs, means3d, campos, degree):
+        out = sh_fwd(shs, means3d, campos, degree)
+        tensor = isinstance(degree, torch.Tensor)
+        ctx.save_for_backward(shs, means3d, campos,
+                              degree if tensor else None)
+        ctx.degree = None if tensor else degree
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        shs, means3d, campos, deg = ctx.saved_tensors
+        d_shs, d_means = sh_bwd(shs, means3d, campos,
+                                deg if deg is not None else ctx.degree, g,
+                                ctx.needs_input_grad[1])
+        return (d_shs if ctx.needs_input_grad[0] else None, d_means, None,
+                None)
+
+
+def sh_to_color(shs: torch.Tensor, means3d: torch.Tensor,
+                campos: torch.Tensor,
+                active_degree: int | torch.Tensor) -> torch.Tensor:
+    """``sh_to_color_plain`` on CPU tensors; on CUDA tensors the SH kernels
+    of ``csrc/project.cu`` (``check_sh`` says what they take), the colours
+    to rounding, differentiable to shs and means3d."""
+    if shs.device.type == "cpu":
+        return sh_to_color_plain(shs, means3d, campos, active_degree)
+    if shs.device.type != "cuda":
+        raise ValueError(f"the SH colour runs on CPU or CUDA tensors, not "
+                         f"{shs.device}")
+    check_sh(shs, means3d, campos, active_degree)
+    if isinstance(active_degree, torch.Tensor):
+        active_degree = active_degree.to(torch.int32)
+    return _ShColor.apply(_aligned(shs), means3d.contiguous(),
+                          campos.contiguous(), active_degree)

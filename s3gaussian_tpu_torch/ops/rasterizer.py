@@ -3,8 +3,9 @@
 
 Dataflow, in three stages that ``chip_smoke.py`` also times one by one:
 
-  ``project_and_pack``: build_cov3d → project → SH colours → [16, N]
-  feature rows; ``pair_keys`` on detached inputs;
+  ``project_and_pack``: covariance and projection (``project``) → SH
+  colours → [16, N] feature rows (on the card the kernels of
+  ``csrc/project.cu``); ``pair_keys`` on detached inputs;
   ``bin_pairs``: ONE stable (key, slot) sort → tile ranges, the view's
   ``Binning``; ``gather_stream``: ONE gather of the 10 data rows at each
   sorted slot's column;
@@ -27,7 +28,8 @@ sections' strides, 4 and ``rect_cap - 4``, plus each granted big's
 periphery at ``big_rank``, with two-class emission), and expanded back to
 the pool by rank, a gather.  Autograd of ``data[:, gid]`` would
 accumulate through ``index_put_``.
-Every other gradient (EWA projection, covariance, SH) is autograd.
+The projection's and the SH colour's gradients are the kernels' backward
+on the card (``ops/project.py``), autograd of the plain code on the CPU.
 
 Inside a train step the three stages are marked (``utils/spans.py``):
 ``project.fwd``, ``bin.fwd`` and ``composite.fwd`` where each starts, and
@@ -46,7 +48,7 @@ from s3gaussian_tpu_torch.config import RasterConfig
 from s3gaussian_tpu_torch.ops import composite as comp
 from s3gaussian_tpu_torch.ops.binning import (PairKeys, make_pair_keys,
                                               sort_pairs, tile_ranges)
-from s3gaussian_tpu_torch.ops.project import (ProjectedGaussians, build_cov3d,
+from s3gaussian_tpu_torch.ops.project import (ProjectedGaussians, project,
                                               project_gaussians, sh_to_color)
 from s3gaussian_tpu_torch.ops.tile_kernels import CompositeTiles
 from s3gaussian_tpu_torch.utils import spans
@@ -105,14 +107,17 @@ def project_and_pack(settings: RasterSettings, means3d: torch.Tensor,
     """Stage 1, differentiable: projection and colours, then (in
     ``bin.fwd``, which it opens) packed into the [16, N] feature rows.
     Returns (proj, feat_pool)."""
-    cov3d = (build_cov3d(scales, rotations, settings.scale_modifier)
-             if cov3d_precomp is None else cov3d_precomp)
-    proj = project_gaussians(
-        means3d, cov3d, settings.viewmatrix, settings.projmatrix,
-        settings.tanfovx, settings.tanfovy, settings.image_width,
-        settings.image_height, tile_x=cfg.tile_x, tile_y=cfg.tile_y,
-        mean2d_tap=mean2d_tap, alive=alive,
-        opacities=opacities if cfg.tight_rect else None)
+    kw = dict(tile_x=cfg.tile_x, tile_y=cfg.tile_y, mean2d_tap=mean2d_tap,
+              alive=alive, opacities=opacities if cfg.tight_rect else None)
+    cam = (settings.viewmatrix, settings.projmatrix, settings.tanfovx,
+           settings.tanfovy, settings.image_width, settings.image_height)
+    if cov3d_precomp is None:
+        if settings.scale_modifier != 1.0:
+            raise ValueError(f"scale_modifier {settings.scale_modifier}: "
+                             f"the projection takes the scales as they are")
+        proj = project(means3d, scales, rotations, *cam, **kw)
+    else:
+        proj = project_gaussians(means3d, cov3d_precomp, *cam, **kw)
     colors = (sh_to_color(shs, means3d, settings.campos, settings.sh_degree)
               if colors_precomp is None else colors_precomp)
     packed = spans.grad_mark("project.bwd", proj.xy, proj.conic, opacities,

@@ -3,8 +3,9 @@ function around them (port of ``s3gaussian_tpu/ops/tile_kernels.py``:
 ``composite_fwd_pallas`` → ``csrc/composite_fwd.cu``,
 ``composite_bwd_pallas`` → ``csrc/composite_bwd.cu``), and the build and
 launch counts of the port's compute kernels (also ``csrc/segment_sum.cu``,
-wrapped by ``ops/segsum.py``, and ``csrc/hexplane.cu``, wrapped by
-``ops/gridsample.py``), and the launch of the step's stage mark
+wrapped by ``ops/segsum.py``, ``csrc/hexplane.cu``, wrapped by
+``ops/gridsample.py``, and ``csrc/project.cu``, wrapped by
+``ops/project.py``), and the launch of the step's stage mark
 ``csrc/span_mark.cu`` (``utils/spans.py``).
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
@@ -40,9 +41,11 @@ SOURCES = {"composite_fwd": _PKG / "csrc" / "composite_fwd.cu",
            "composite_bwd": _PKG / "csrc" / "composite_bwd.cu",
            "segment_sum": _PKG / "csrc" / "segment_sum.cu",
            "span_mark": _PKG / "csrc" / "span_mark.cu",
-           "hexplane": _PKG / "csrc" / "hexplane.cu"}
+           "hexplane": _PKG / "csrc" / "hexplane.cu",
+           "project": _PKG / "csrc" / "project.cu"}
 # the C entry point of each library, where it is not the source's name
-ENTRY = {"span_mark": "span_mark_at", "hexplane": "hexplane_fwd"}
+ENTRY = {"span_mark": "span_mark_at", "hexplane": "hexplane_fwd",
+         "project": "project_fwd"}
 HEADER = _PKG / "csrc" / "composite_common.cuh"   # the compositors' own
 BUILD_DIR = _PKG.parent / "build" / "s3gaussian_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,7 +57,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (train/graphs.py) adds what it captured once per replay through
 # ``count_replay``.  Both tables are updated in place, never rebound.
 KERNELS = ("composite_fwd", "composite_bwd", "segment_sum", "span_mark",
-           "hexplane_fwd", "hexplane_bwd")
+           "hexplane_fwd", "hexplane_bwd", "project_fwd", "project_bwd",
+           "sh_fwd", "sh_bwd")
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 captured: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -181,6 +185,25 @@ def _load(name: str) -> ctypes.CDLL:
             lib.hexplane_bwd.argtypes = [ptr, i64, i32, i32, ptrs, ints, ptr,
                                          i32, i32, ptrs, ptr, i32, ptr]
             lib.hexplane_bwd.restype = ctypes.c_int
+        elif name == "project":
+            f32 = ctypes.c_float
+            # means, scales, rots, tap, alive, opac, view, proj, tanx, tany,
+            # focal x/y, lim x/y, n, width, height, tile x/y, margin, xy,
+            # depth, conic, radius, rect, visible, stream
+            fn.argtypes = [*[ptr] * 10, *[f32] * 4, i64, *[i32] * 4, f32,
+                           *[ptr] * 7]
+            # means, scales, rots, view, proj, tanx, tany, focal x/y, lim
+            # x/y, n, width, height, g_xy, g_depth, g_conic, d_means,
+            # d_scales, d_rots, d_tap, stream
+            lib.project_bwd.argtypes = [*[ptr] * 7, *[f32] * 4, i64, i32,
+                                        i32, *[ptr] * 8]
+            # shs, k, means, campos, n, degree, degree pointer, then out
+            # (forward) or g, d_shs, d_means (backward), stream
+            sh = [ptr, i32, ptr, ptr, i64, i32, ptr]
+            lib.sh_fwd.argtypes = [*sh, ptr, ptr]
+            lib.sh_bwd.argtypes = [*sh, ptr, ptr, ptr, ptr]
+            for f in (lib.project_bwd, lib.sh_fwd, lib.sh_bwd):
+                f.restype = ctypes.c_int
         elif name == "composite_fwd":
             fn.argtypes = [ptr, i64, ptr, ptr, *dims, ptr]
         elif name == "composite_bwd":

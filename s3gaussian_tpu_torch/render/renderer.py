@@ -32,8 +32,7 @@ from s3gaussian_tpu_torch.models.deformation import DeformationField
 from s3gaussian_tpu_torch.models.pool import GaussianPool
 from s3gaussian_tpu_torch.ops.compact import (candidates, expand_by_rank,
                                               take_compact)
-from s3gaussian_tpu_torch.ops.project import (build_cov3d, project_gaussians,
-                                              sh_to_color)
+from s3gaussian_tpu_torch.ops.project import project, sh_to_color
 from s3gaussian_tpu_torch.ops.rasterizer import RasterSettings, rasterize
 from s3gaussian_tpu_torch.utils import spans
 
@@ -90,14 +89,14 @@ def cull_working_set(pool: GaussianPool, cameras: Sequence[Camera],
     working set as a pool (``alive`` masks its real members), the union
     visibility [N] that ordered it, and each tap gathered alike."""
     with torch.no_grad():
-        cov0 = build_cov3d(torch.exp(pool.scaling), pool.rotation)
+        scales0 = torch.exp(pool.scaling)
         vis0 = None
         for cam in cameras:
-            v = project_gaussians(
-                pool.xyz, cov0, cam.world_view, cam.full_proj, cam.tanfovx,
-                cam.tanfovy, cam.image_width, cam.image_height,
-                tile_x=cfg.tile_x, tile_y=cfg.tile_y, alive=pool.alive,
-                radius_margin=cfg.cull_margin_px).visible
+            v = project(
+                pool.xyz, scales0, pool.rotation, cam.world_view,
+                cam.full_proj, cam.tanfovx, cam.tanfovy, cam.image_width,
+                cam.image_height, tile_x=cfg.tile_x, tile_y=cfg.tile_y,
+                alive=pool.alive, radius_margin=cfg.cull_margin_px).visible
             vis0 = v if vis0 is None else vis0 | v
         nr = min(cfg.max_visible, pool.capacity)
         cand = candidates(vis0, nr)

@@ -358,17 +358,26 @@ def replayed():
 
 @pytest.mark.cuda
 def test_cuda_block_spans_cover_its_steps(replayed):
-    """A block of 5 replays: each step's spans sum to within 5% of its
-    CUDA-event time, the stamps of the last never decrease, and one
+    """A block of 5 replays: the steps' spans sum to within 5% of their
+    CUDA-event time less the host's gap before the first replay, a gap
+    shorter than a step; the stamps of the last never decrease, and one
     step's spans sum to its last stamp less its first."""
     state, args, rigs = replayed
     marks = []
     state, aux = tr.train_steps_scan_multicam(state, rigs, 3, "fine", *args,
                                               marks=marks)
     torch.cuda.synchronize()
-    event_ms = sum(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
-    span_ms = float(aux["span_ns"].sum()) / 1e6
-    assert abs(span_ms - event_ms) <= 0.05 * event_ms, (span_ms, event_ms)
+    event = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    span = (aux["span_ns"].sum(1).double() / 1e6).tolist()
+    outside = [e - s for e, s in zip(event, span)]
+    # the first interval also holds the card idling while the host issues
+    # the first replay; after it the host runs ahead of the card, so each
+    # later interval holds only the step's device work (its spans and its
+    # input and output copies)
+    gap = outside[0] - max(outside[1:])
+    assert gap < min(event[1:]), (gap, event, span)
+    busy = sum(event) - max(gap, 0.0)
+    assert abs(sum(span) - busy) <= 0.05 * busy, (event, span)
     stamps = spans.last_stamps().cpu()
     assert bool((stamps[1:] >= stamps[:-1]).all())
     assert int(aux["span_ns"][-1].sum()) == int(stamps[-1] - stamps[0])
