@@ -10,20 +10,21 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from benchmark.frozen import flops
+from benchmark.frozen import fields, flops
 from benchmark.frozen import work_counts as wc
-from benchmark.frozen.ref.models.deformation import DeformationField
 from benchmark.frozen.ref.models.pool import GaussianPool
 from benchmark.frozen.ref.ops import rasterizer
 from benchmark.frozen.ref.render import renderer
 
 
-def _frozen_model(state, hp_ref, dev):
-    """The frozen modules holding the program state's tensors."""
+def _frozen_model(state, config: Dict, hp_ref, dev):
+    """The frozen modules holding the program state's tensors: the pool
+    and the configuration's reference field."""
     pool = GaussianPool(**{k: getattr(state.pool, k) for k in (
         "xyz", "features_dc", "features_rest", "scaling", "rotation",
         "opacity", "alive")})
-    field = DeformationField(hp_ref, torch.Generator().manual_seed(0), dev)
+    field = fields.reference(config, hp_ref, torch.Generator().manual_seed(0),
+                             dev)
     field.load_state_dict(state.deform.state_dict())
     return pool, field
 
@@ -37,7 +38,7 @@ def sample_calls(clip, config: Dict, state, cfg, units: Sequence[int]
     hp_ref, _, pipe, cfg_ref = reference.settings(config)
     cfg_ref.max_visible = cfg.max_visible
     dev = state.pool.xyz.device
-    pool, field = _frozen_model(state, hp_ref, dev)
+    pool, field = _frozen_model(state, config, hp_ref, dev)
     fovs = fov(config["clip"])
     bg = torch.zeros(3, device=dev)
     streams: List = []

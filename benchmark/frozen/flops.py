@@ -14,8 +14,9 @@ float32 outside the tensor cores, 3.35 TB/s of HBM3.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
+from benchmark.frozen import fields
 from benchmark.frozen import work_counts as wc
 
 F32_FLOPS = 67e12
@@ -32,32 +33,40 @@ def linear(n_in: int, n_out: int) -> int:
     return 2 * n_in * n_out + n_out
 
 
+# the decoder's heads: (the flag that turns one off, its outputs)
+HEADS = (("no_dx", 3), ("no_ds", 3), ("no_dr", 4), ("no_do", 1),
+         ("no_dshs", 48))
+
+
+def decoder_linears(model: Dict) -> List[Tuple[int, int]]:
+    """(inputs, outputs) of every Linear of the hexplane field's decoder,
+    in order: ``feature_out`` (Linear(C·S, W), then max(D − 1, 0) of
+    Linear(W, W)), each head that is on (Linear(W, W), Linear(W, out))
+    and the DINO head (Linear(W, 64), Linear(64, 64), Linear(64, 3))."""
+    c = (model["kplanes_config"]["output_coordinate_dim"]
+         * len(model["multires"]))
+    w = model["net_width"]
+    layers = [(c, w)] + [(w, w)] * max(model["defor_depth"] - 1, 0)
+    for flag, out in HEADS:
+        if not model[flag]:
+            layers += [(w, w), (w, out)]
+    if model["feat_head"]:
+        layers += [(w, 64), (64, 64), (64, 3)]
+    return layers
+
+
 def field_forward(model: Dict) -> int:
-    """Operations of one row through the deformation field's forward:
-    the aabb normalisation, the hexplane's planes at every scale
+    """Operations of one row through the hexplane deformation field's
+    forward: the aabb normalisation, the hexplane's planes at every scale
     (bilinear spatial planes: 4 corner weights then 7 a channel; the time
     planes at one time: a 1-D lerp, 3 a channel; the product of the six
-    planes, 5 a channel), ``feature_out``, the heads that are on (pos,
-    shs) and the DINO head."""
+    planes, 5 a channel), the decoder's Linears (``decoder_linears``), 3
+    more a head that is on, and the sums of dx and dshs."""
     c = model["kplanes_config"]["output_coordinate_dim"]
     n_scales = len(model["multires"])
-    w = model["net_width"]
     grid = 6 + n_scales * (3 * (8 + 7 * c) + 3 * (2 + 3 * c) + 5 * c)
-    mlp = linear(c * n_scales, w) + (model["defor_depth"] - 1) * linear(w, w)
-    heads = []
-    if not model["no_dx"]:
-        heads.append(3)
-    if not model["no_ds"]:
-        heads.append(3)
-    if not model["no_dr"]:
-        heads.append(4)
-    if not model["no_do"]:
-        heads.append(1)
-    if not model["no_dshs"]:
-        heads.append(48)
-    mlp += sum(linear(w, w) + linear(w, o) + 3 for o in heads)
-    if model["feat_head"]:
-        mlp += linear(w, 64) + linear(64, 64) + linear(64, 3)
+    n_heads = sum(1 for flag, _ in HEADS if not model[flag])
+    mlp = sum(linear(i, o) for i, o in decoder_linears(model)) + 3 * n_heads
     return grid + mlp + 3 + 48
 
 
@@ -113,17 +122,18 @@ def segment_sum_bytes(calls: Sequence[tuple]) -> int:
                for k, d, n in calls)
 
 
-def train_step(model: Dict, field_rows: int, projected_rows: int,
+def train_step(config: Dict, field_rows: int, projected_rows: int,
                pixels: int, n_params: int, passes: Sequence[Dict],
                grid_params: int) -> int:
-    """Operations one fine train step requires: the field forward and
-    backward over ``field_rows`` rows, projection and SH of
+    """Operations one fine train step of ``config`` requires: its field's
+    forward and backward over ``field_rows`` rows (the ``"work"`` its
+    ``"field"`` names, else ``field_forward``), projection and SH of
     ``projected_rows`` rows forward and backward, each compositor pass of
     ``passes`` (work counts) forward and backward, the loss over
     ``pixels`` pixels forward and backward, the hexplane regularisers
     (~8 an element of ``grid_params``, forward and backward) and Adam
     over ``n_params`` parameters."""
-    ops = (1 + BACKWARD) * (field_rows * field_forward(model)
+    ops = (1 + BACKWARD) * (field_rows * fields.row_ops(config)
                             + projected_rows * PROJECT_SH
                             + pixels * LOSS_PER_PIXEL
                             + grid_params * 8)

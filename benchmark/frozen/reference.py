@@ -3,14 +3,15 @@
 It is built from what the harness made from the seed (the cloud, its
 colours, the views and their targets) and from nothing the program
 made: it works out again the pool's initial scales (its own KNN), the
-field's initial weights (the same seeded draws), the auto-sized render
-budget, and then runs the first steps eagerly through the frozen copy of
-the port's plain modules (``benchmark/frozen/ref``), with the plain
-compositors and plain ordered sums, TF32 off.  ``tf32=True`` is the
-control: the same with TF32 on for matmuls and convolutions.  ``fault``
-plants one of the faults the comparison must catch in it:
-``"half_batch"`` leaves out half of each rig's cameras and takes the mean
-over the rest.
+field's initial weights (the configuration's reference field,
+``benchmark/frozen/fields.py``, from the same seeded draws), the
+auto-sized render budget, and then runs the first steps eagerly through
+the frozen copy of the port's plain modules (``benchmark/frozen/ref``),
+with the plain compositors and plain ordered sums, TF32 off.
+``tf32=True`` is the control: the same with TF32 on for matmuls and
+convolutions.  ``fault`` plants one of the faults the comparison must
+catch in it: ``"half_batch"`` leaves out half of each rig's cameras and
+takes the mean over the rest.
 """
 
 from __future__ import annotations
@@ -20,11 +21,10 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from benchmark.frozen import compare
+from benchmark.frozen import compare, fields
 from benchmark.frozen import work_counts as wc
 from benchmark.frozen.ref import config as rc
 from benchmark.frozen.ref.data.cameras import Camera
-from benchmark.frozen.ref.models.deformation import DeformationField
 from benchmark.frozen.ref.models.pool import create_from_pcd
 from benchmark.frozen.ref.ops import gridsample
 from benchmark.frozen.ref.train import trainer
@@ -86,7 +86,7 @@ def initial_state(clip, config: Dict, seed: int, dev: torch.device):
     pool = create_from_pcd(clip.points.cpu().numpy(),
                            clip.colors.cpu().numpy(), config["capacity"],
                            config["sh_degree"], device=dev)
-    field = DeformationField(hp, torch.Generator().manual_seed(
+    field = fields.reference(config, hp, torch.Generator().manual_seed(
         int(seed) % (1 << 63)), dev)
     if cfg.max_visible == 0:
         from benchmark.harness.clip import fov

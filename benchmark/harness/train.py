@@ -1,7 +1,8 @@
 """Mixes of kind ``train``: the CLI's fine-stage inner loop.
 
 Set-up builds one train state from the seed's clip, as the CLI builds
-it (``create_from_pcd``, the seeded field, ``init_state``, the
+it (``create_from_pcd``, the seeded field that the configuration names
+(``benchmark/frozen/fields.py``), ``init_state``, the
 auto-sized render budget), and drives it through the window's own call,
 ``trainer.train_steps_scan`` or ``train_steps_scan_multicam`` (on the
 card replays of the step captured as one CUDA graph): a block of one
@@ -25,7 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark.frozen import compare, flops, reference
+from benchmark.frozen import compare, fields, flops, reference
 from benchmark.harness import clip as clipgen
 from benchmark.harness import trace as tracing
 
@@ -77,7 +78,6 @@ def _failed(counters: Dict[str, List[float]]) -> int:
 
 def run(ctx: Dict) -> Dict:
     """One run of a train cell; returns the harness's result pieces."""
-    from s3gaussian_tpu_torch.models.deformation import DeformationField
     from s3gaussian_tpu_torch.models.pool import create_from_pcd
     from s3gaussian_tpu_torch.ops import tile_kernels as tk
     from s3gaussian_tpu_torch.train import trainer
@@ -94,7 +94,7 @@ def run(ctx: Dict) -> Dict:
     pool = create_from_pcd(points, clip.colors.cpu().numpy(),
                            config["capacity"], config["sh_degree"],
                            device=dev)
-    field = DeformationField(hp, torch.Generator().manual_seed(
+    field = fields.program(config, hp, torch.Generator().manual_seed(
         int(seed) % (1 << 63)), dev)
     state = trainer.init_state(pool, field, clip.aabb)
     cams = _program_cameras(clip, config)
@@ -266,7 +266,7 @@ def work_yardstick(ctx: Dict, clip, state, cfg, window_units: List[int],
                 + sum(p.numel() for p in state.deform.parameters()))
     field_rows = (rows["rig_union_mean"] if config["multicam"] > 1
                   else int(state.pool.n_alive))
-    per_step = flops.train_step(config["model"], field_rows,
+    per_step = flops.train_step(config, field_rows,
                                 rows["view_mean"] * n_cams,
                                 c["height"] * c["width"] * n_cams, n_params,
                                 [], grid_params)

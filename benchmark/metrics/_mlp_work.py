@@ -3,11 +3,10 @@ configuration's ``"model"`` widths, and its time, the program's inner
 spans ``field.mlp.fwd`` and ``field.mlp.bwd``
 (``s3gaussian_tpu_torch/utils/spans.py``), where the program has them.
 
-The decoder is everything after the hexplane query: ``feature_out``
-(Linear(C·S, W), then max(D − 1, 0) of ReLU, Linear(W, W)), each head
-that is on (ReLU, Linear(W, W), ReLU, Linear(W, out), its output added
-to its attribute) and the DINO head (Linear(W, 64), Linear(64, 64),
-Linear(64, 3)).  Conventions of ``benchmark/frozen/flops.py``: an FMA is
+The decoder is everything after the hexplane query, the Linears of
+``benchmark/frozen/flops.py::decoder_linears`` (the one definition of
+its layers that the step's count also takes), each head's output added
+to its attribute.  Conventions of ``benchmark/frozen/flops.py``: an FMA is
 two operations, compares and selects (the ReLUs) none; a Linear(i, o)
 takes 2·i·o + o a row, a head's residual add o.  Bytes: each Linear's
 input read and output written once a row in float32, and its weights
@@ -19,52 +18,26 @@ operations a row, which are not counted.
 
 from __future__ import annotations
 
-import json
-import os
 from typing import Dict, List, Optional, Tuple
 
-from benchmark.frozen.flops import BACKWARD, least_s
-
-HEADS = (("no_dx", 3), ("no_ds", 3), ("no_dr", 4), ("no_do", 1),
-         ("no_dshs", 48))
-
-
-def config_model(name: str) -> Dict:
-    """The ``"model"`` of ``benchmark/configs/<name>.json``."""
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "configs", f"{name}.json")
-    with open(path) as f:
-        return json.load(f)["model"]
-
-
-def linears(model: Dict) -> List[Tuple[int, int]]:
-    """(inputs, outputs) of every Linear of the decoder, in order."""
-    c = (model["kplanes_config"]["output_coordinate_dim"]
-         * len(model["multires"]))
-    w = model["net_width"]
-    layers = [(c, w)] + [(w, w)] * max(model["defor_depth"] - 1, 0)
-    for flag, out in HEADS:
-        if not model[flag]:
-            layers += [(w, w), (w, out)]
-    if model["feat_head"]:
-        layers += [(w, 64), (64, 64), (64, 3)]
-    return layers
+from benchmark.frozen.flops import (BACKWARD, HEADS, decoder_linears,
+                                    least_s)
 
 
 def row_ops(model: Dict) -> int:
     """Operations of one row through the decoder's forward."""
     adds = sum(out for flag, out in HEADS if not model[flag])
-    return sum(2 * i * o + o for i, o in linears(model)) + adds
+    return sum(2 * i * o + o for i, o in decoder_linears(model)) + adds
 
 
 def row_bytes(model: Dict) -> int:
     """Bytes one row moves through the decoder's forward."""
-    return sum(4 * (i + o) for i, o in linears(model))
+    return sum(4 * (i + o) for i, o in decoder_linears(model))
 
 
 def weight_bytes(model: Dict) -> int:
     """Bytes of the decoder's weights and biases."""
-    return sum(4 * (i * o + o) for i, o in linears(model))
+    return sum(4 * (i * o + o) for i, o in decoder_linears(model))
 
 
 def step_least_s(model: Dict, rows: int) -> float:

@@ -11,11 +11,11 @@ in ``benchmark/harness/<kind>.py``), the limits of the numbers that
 decide ``correct`` (``benchmark/limits/<workload>.json``) and, in a
 traced run, a reader per per-layer metric
 (``benchmark/metrics/<metric>.py``, ``read(ctx)`` returning a number or
-None).  The last line of standard output is the result; the numbers
-compared, each beside its limit, are the last lines of standard error
-and the result's last key.  Without a CUDA card (or with fewer than the
-cell asks for) the run exits 2 and prints no result; with JAX or the
-JAX package loaded by then, 3.
+None; ``ctx["config"]`` is the cell's configuration).  The last line
+of standard output is the result; the numbers compared, each beside its
+limit, are the last lines of standard error and the result's last key.
+Without a CUDA card (or with fewer than the cell asks for) the run exits
+2 and prints no result; with JAX or the JAX package loaded by then, 3.
 """
 
 from __future__ import annotations
@@ -161,7 +161,7 @@ def execute(bench: Bench, workload: str, seed: int, seconds: float,
     out: Dict = {"correct": bool(correct), "attempted": int(res["attempted"]),
                  "failed": int(res["failed"])}
     if trace:
-        layer = res["layer"]
+        layer = dict(res["layer"], config=config)
         for m in bench.per_layer(workload):
             v = bench.reader(m["name"])(layer)
             if v is not None:

@@ -83,6 +83,36 @@ def test_linear_and_field_counts():
     assert flops.field_forward(model) == 106 + 20 + 66 + 51
 
 
+@pytest.mark.parametrize("depth,hidden", [(0, 0), (1, 0), (2, 1)])
+def test_field_forward_counts_the_decoders_layers(depth, hidden):
+    """``waymo_4dgs``'s field at ``defor_depth`` 0, 1 and 2: the step's
+    count takes the decoder's Linears that ``_mlp_work`` counts,
+    max(D - 1, 0) Linear(128, 128) of them in ``feature_out``, and
+    beside them only the grid (1,186), 3 a head and the sums of dx and
+    dshs, less the heads' residual adds the decoder counts (59)."""
+    from benchmark.metrics import _mlp_work as mw
+    m = dict(Bench(REPO).config("waymo_4dgs")["model"], defor_depth=depth)
+    layers = flops.decoder_linears(m)
+    assert layers[1:1 + hidden] == [(128, 128)] * hidden
+    assert len(layers) == 1 + hidden + 2 * 5
+    assert flops.field_forward(m) == 189_215 + hidden * 32_896
+    assert flops.field_forward(m) - mw.row_ops(m) == 1_186 + 15 + 51 - 59
+
+
+def test_named_work_reaches_the_step():
+    """A configuration's ``"field"`` brings its own count of a row into
+    the step's; without one, ``field_forward``."""
+    from benchmark.tests import toy_reference
+    from benchmark.tests.tiny import TOY_FIELD
+    model = Bench(REPO).config("waymo_default")["model"]
+    toy = {"model": model, "field": TOY_FIELD}
+    ops = toy_reference.row_ops(model, TOY_FIELD["params"])
+    assert ops != flops.field_forward(model)
+    assert flops.train_step(toy, 10, 0, 0, 0, [], 0) == 3 * 10 * ops
+    assert flops.train_step({"model": model}, 10, 0, 0, 0, [], 0) == (
+        3 * 10 * flops.field_forward(model))
+
+
 def test_compositor_counts():
     c = {"evaluated": 10, "contributing": 4, "column_evaluating": 3,
          "column_contributing": 2, "needed": 5}

@@ -85,15 +85,22 @@ def test_config_files_state_their_cuts(spec):
 
 
 def test_new_entries_need_no_edit(tmp_path, spec):
-    """A configuration, a mix and a per-layer metric added as new files
-    and new entries are found by name, with no existing file edited."""
+    """A configuration with its own deformation field, a mix and a
+    per-layer metric added as new files and new entries are found by
+    name, with no existing file edited."""
+    import torch
+
+    from benchmark.frozen import fields, flops
+    from benchmark.tests import toy_program, toy_reference
+    from benchmark.tests.tiny import TOY_FIELD
     root = tmp_path
     bdir = root / "benchmark"
     (bdir / "configs").mkdir(parents=True)
     (bdir / "mixes").mkdir()
     (bdir / "limits").mkdir()
     (bdir / "metrics").mkdir()
-    (bdir / "configs" / "dummy.json").write_text(json.dumps({"name": "dummy"}))
+    dummy = {"name": "dummy", "model": {}, "field": TOY_FIELD}
+    (bdir / "configs" / "dummy.json").write_text(json.dumps(dummy))
     (bdir / "mixes" / "dummy_mix.json").write_text(json.dumps(
         {"kind": "train"}))
     (bdir / "limits" / "dummy.dummy_mix.json").write_text(json.dumps(
@@ -113,7 +120,15 @@ def test_new_entries_need_no_edit(tmp_path, spec):
         "moves": "train_views_per_s", "workloads": ["dummy.dummy_mix"]}]
     (root / "BENCHMARK.json").write_text(json.dumps(new))
     b = bench_run.Bench(str(root))
-    assert b.config("dummy") == {"name": "dummy"}
+    config = b.config("dummy")
+    assert config == dummy
+    gen = torch.Generator().manual_seed(0)
+    assert isinstance(fields.program(config, None, gen, "cpu"),
+                      toy_program.ToyField)
+    assert isinstance(fields.reference(config, None, gen, "cpu"),
+                      toy_reference.ToyReference)
+    assert flops.train_step(config, 1, 0, 0, 0, [], 0) == (
+        3 * toy_reference.row_ops({}, TOY_FIELD["params"]))
     assert b.mix("dummy_mix") == {"kind": "train"}
     assert b.limits("dummy.dummy_mix") == {"loss_gap": 1.0}
     assert [m["name"] for m in b.per_layer("dummy.dummy_mix")] == [

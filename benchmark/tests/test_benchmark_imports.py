@@ -58,10 +58,27 @@ print("ok")
 
 
 def test_reference_imports_nothing_of_the_port():
+    """The frozen modules, and the reference field and work count that
+    each configuration names (and the toy field's), built at a tiny
+    size."""
     mods = _modules("frozen")
     assert "benchmark.frozen.reference" in mods
     code = "import sys\n" + "\n".join(f"import {m}" for m in mods) + r'''
 import benchmark.harness.clip
+import torch
+from benchmark import run
+from benchmark.frozen import fields, reference
+from benchmark.tests.tiny import TOY_FIELD
+b = run.Bench()
+configs = [b.config(c["name"]) for c in b.spec["configs"]]
+configs.append(dict(configs[0], field=TOY_FIELD))
+for config in configs:
+    model = dict(config["model"], multires=[1], kplanes_config=dict(
+        config["model"]["kplanes_config"], resolution=[4, 4, 4, 3]))
+    config = dict(config, model=model)
+    fields.reference(config, reference.settings(config)[0],
+                     torch.Generator().manual_seed(0), "cpu")
+    fields.row_ops(config)
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("s3gaussian_tpu_torch", "s3gaussian_tpu", "jax")]
 assert not bad, bad

@@ -42,3 +42,47 @@ def tiny_tree(root: str) -> bench_run.Bench:
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(spec, f)
     return bench_run.Bench(root)
+
+
+# a gridless toy field (``toy_program.py``, ``toy_reference.py``) as a
+# configuration names it
+TOY_FIELD = {"program": "benchmark.tests.toy_program:build",
+             "reference": "benchmark.tests.toy_reference:build",
+             "work": "benchmark.tests.toy_reference:row_ops",
+             "params": {"width": 16, "xyz_freqs": 2, "t_freqs": 2}}
+
+
+def toy_tree(root: str) -> bench_run.Bench:
+    """The tiny tree with one more configuration and cell, added as new
+    files and entries only: ``toy``, the tiny ``waymo_default`` under
+    the toy field (no grid, so no hexplane terms in the loss; no DINO or
+    SH head), and ``toy.train``, which reports ``train_views_per_s`` and
+    ``mfu.train``.  5,000 points: above 4,096 the program's KNN is the
+    native search that the reference follows."""
+    tiny_tree(root)
+    bdir = os.path.join(root, "benchmark")
+    cfg = bench_run.load_json(os.path.join(bdir, "configs",
+                                           "waymo_default.json"))
+    cfg.update(name="toy", num_pts=5000, capacity=8192, field=TOY_FIELD)
+    cfg["raster"]["max_visible"] = 8192
+    cfg["model"].update(no_dshs=True, feat_head=False,
+                        time_smoothness_weight=0.0, plane_tv_weight=0.0,
+                        l1_time_planes=0.0)
+    with open(os.path.join(bdir, "configs", "toy.json"), "w") as f:
+        json.dump(cfg, f)
+    shutil.copy(os.path.join(bdir, "limits", "waymo_default.train.json"),
+                os.path.join(bdir, "limits", "toy.train.json"))
+    path = os.path.join(root, "BENCHMARK.json")
+    spec = bench_run.load_json(path)
+    spec["configs"].append({"name": "toy", "source": "a test",
+                            "file": "benchmark/configs/toy.json",
+                            "reduced": [], "why": "a test"})
+    spec["workloads"].append({"name": "toy.train", "config": "toy",
+                              "traffic": "train", "chips": 1,
+                              "why": "a test"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if m["name"] in ("train_views_per_s", "mfu.train"):
+            m["workloads"].append("toy.train")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return bench_run.Bench(root)
