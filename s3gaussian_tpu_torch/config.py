@@ -17,6 +17,13 @@ that defaults to True, such as ``render_process``, cannot be switched off
 from the command line, only from a config file), and the shorthand
 fields also get ``-<first letter>``.  ``apply_config_file`` execs a
 reference-style Python config that assigns ``<GroupName> = dict(...)``.
+
+``FieldParams`` is the port's own group, which the JAX package lacks:
+which deformation field a run trains (the hexplane field of
+``ModelHiddenParams``, or Deformable 3D Gaussians' MLP at its widths).
+Its flags, its dict in a config file and its fields in ``cfg_args`` sit
+beside those of the shared groups (``GROUPS``); a config or
+``cfg_args`` without them trains the hexplane field.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import argparse
 import dataclasses
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -207,6 +214,27 @@ class ModelHiddenParams:
 
 
 @dataclass
+class FieldParams:
+    """The deformation field a run trains (port only).  ``hexplane``:
+    ``models/deformation.py``, sized by ``ModelHiddenParams``.
+    ``deformable3dgs``: ``models/deform_mlp.py``, Deformable 3D
+    Gaussians' ``DeformNetwork`` (Yang et al., CVPR 2024) at the widths
+    below: ``field_depth`` Linear layers of ``field_width`` on the
+    positional encodings of the position (``field_multires`` octaves)
+    and time (``field_t_multires``), the encodings concatenated again
+    after layer ``field_skip``."""
+
+    field_kind: str = "hexplane"
+    field_depth: int = 8
+    field_width: int = 256
+    field_multires: int = 10
+    field_t_multires: int = 10
+    field_skip: int = 4
+
+    __hash__ = object.__hash__
+
+
+@dataclass
 class RasterConfig:
     """Static capacities of the rasterizer (no reference analog: they
     replace the CUDA reference's dynamically sized buffers)."""
@@ -280,18 +308,22 @@ def extract_group(cls, args: argparse.Namespace):
     return inst
 
 
+# the groups the JAX package has too, and the port's own
 GROUPS = ("ModelParams", "PipelineParams", "OptimizationParams",
           "ModelHiddenParams", "RasterConfig")
+PORT_GROUPS = ("FieldParams",)
 
 
-def load_config_overrides(path: str) -> Dict[str, Dict[str, Any]]:
+def load_config_overrides(path: str, groups: Tuple[str, ...] = GROUPS
+                          ) -> Dict[str, Dict[str, Any]]:
     """Exec a reference-style config file (``arguments/nvs.py`` etc.) that
-    assigns ``<GroupName> = dict(...)``; returns the dicts by group."""
+    assigns ``<GroupName> = dict(...)``; returns the dicts of ``groups``
+    by group."""
     scope: Dict[str, Any] = {}
     with open(path) as f:
         code = f.read()
     exec(compile(code, path, "exec"), scope)  # noqa: S102 - trusted local file
-    return {name: scope[name] for name in GROUPS
+    return {name: scope[name] for name in groups
             if isinstance(scope.get(name), dict)}
 
 
@@ -306,12 +338,15 @@ def merge_hparams(group, overrides: Dict[str, Any]):
 
 def apply_config_file(path: str, model: ModelParams, pipe: PipelineParams,
                       opt: OptimizationParams, hyper: ModelHiddenParams,
-                      cfg: Optional[RasterConfig] = None):
-    ov = load_config_overrides(path)
+                      cfg: Optional[RasterConfig] = None,
+                      field: Optional[FieldParams] = None):
+    ov = load_config_overrides(path, GROUPS + PORT_GROUPS)
     merge_hparams(model, ov.get("ModelParams", {}))
     merge_hparams(pipe, ov.get("PipelineParams", {}))
     merge_hparams(opt, ov.get("OptimizationParams", {}))
     merge_hparams(hyper, ov.get("ModelHiddenParams", {}))
     if cfg is not None:
         merge_hparams(cfg, ov.get("RasterConfig", {}))
+    if field is not None:
+        merge_hparams(field, ov.get("FieldParams", {}))
     return model, pipe, opt, hyper

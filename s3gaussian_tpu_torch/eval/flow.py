@@ -12,7 +12,7 @@ Ground-truth model: rigid boxes with constant per-frame velocity.  A
 Gaussian's flow over ``dt`` frames is ``vel * dt`` for the box it sits in
 at frame ``t`` (boxes translate by ``vel * t``), zero elsewhere.  The
 scoring is numpy on the host; ``deformation_flow_epe`` evaluates the
-port's ``DeformationField`` where the pool lives.
+port's deformation field where the pool lives.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from s3gaussian_tpu_torch.models.deformation import DeformationField
+from s3gaussian_tpu_torch.models.fields import Field
 from s3gaussian_tpu_torch.models.pool import GaussianPool
 
 
@@ -98,7 +98,7 @@ def flow_epe(xyz: np.ndarray, dx_t: np.ndarray, dx_t2: np.ndarray,
 
 
 @torch.no_grad()
-def deformation_flow_epe(pool: GaussianPool, deform: DeformationField,
+def deformation_flow_epe(pool: GaussianPool, deform: Field,
                          aabb: torch.Tensor, gt_motion: Dict, n_frames: int,
                          offsets=(1, 3), probe_frames=None
                          ) -> Dict[str, Dict[str, float]]:

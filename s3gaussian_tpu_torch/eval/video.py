@@ -40,7 +40,7 @@ from s3gaussian_tpu_torch.eval.metrics import (masked_psnr, masked_ssim,
                                                psnr, ssim_skimage)
 from s3gaussian_tpu_torch.eval.visualization import (scene_flow_to_rgb, to8b,
                                                      visualize_depth)
-from s3gaussian_tpu_torch.models.deformation import DeformationField
+from s3gaussian_tpu_torch.models.fields import Field
 from s3gaussian_tpu_torch.models.pool import GaussianPool
 from s3gaussian_tpu_torch.ops import tile_kernels as tk
 from s3gaussian_tpu_torch.render.renderer import render_multicam
@@ -133,7 +133,7 @@ def view_metrics(rgb: torch.Tensor, cam: Camera) -> Dict[str, float]:
                                    .tolist())))
 
 
-def _sweep_render(pool: GaussianPool, deform: Optional[DeformationField],
+def _sweep_render(pool: GaussianPool, deform: Optional[Field],
                   pipe: PipelineParams, bg: torch.Tensor,
                   aabb: Optional[torch.Tensor], sh_deg: int, stage: str,
                   cfg: RasterConfig, decomp: bool, want_dx: bool,
@@ -199,7 +199,7 @@ def _to_host(out: Dict, gts: Sequence[torch.Tensor], on_card: bool):
 
 @torch.no_grad()
 def render_pixels(cameras: Sequence[Camera], pool: GaussianPool,
-                  deform: Optional[DeformationField], pipe: PipelineParams,
+                  deform: Optional[Field], pipe: PipelineParams,
                   bg: torch.Tensor, aabb: Optional[torch.Tensor],
                   active_sh_degree: int, stage: str, cfg: RasterConfig,
                   compute_metrics: bool = True,
@@ -398,7 +398,7 @@ def save_videos(frames: Dict, save_pth: str, num_timestamps: int) -> None:
 
 
 def do_evaluation(train_cams, test_cams, full_cams, pool: GaussianPool,
-                  deform: Optional[DeformationField], pipe: PipelineParams,
+                  deform: Optional[Field], pipe: PipelineParams,
                   bg: torch.Tensor, aabb: Optional[torch.Tensor],
                   active_sh_degree: int, stage: str, cfg: RasterConfig,
                   eval_dir: str, step: int = 0, num_cams: int = 3,

@@ -51,6 +51,9 @@ def _head(width: int, out: int, generator, device) -> nn.Sequential:
 
 
 class DeformOut(NamedTuple):
+    """A field's raw (pre-activation) attributes; ``d_scales`` and
+    ``d_rotations``, where a field gives them, are deltas in activated
+    space that the renderer adds after exp and normalisation."""
     xyz: torch.Tensor
     scales: torch.Tensor
     rotations: torch.Tensor
@@ -59,11 +62,15 @@ class DeformOut(NamedTuple):
     dx: Optional[torch.Tensor]
     feat: Optional[torch.Tensor]
     dshs: Optional[torch.Tensor]
+    d_scales: Optional[torch.Tensor] = None
+    d_rotations: Optional[torch.Tensor] = None
 
 
 class DeformationField(nn.Module):
     """``forward_dynamic`` of the reference on raw (pre-activation)
     attributes."""
+
+    kind = "hexplane"
 
     def __init__(self, hp: ModelHiddenParams, generator: torch.Generator,
                  device: torch.device | str = "cuda"):

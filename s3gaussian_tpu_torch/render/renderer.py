@@ -5,7 +5,8 @@ One body renders a view, a rig of B >= 1 same-time cameras
 (``render_multicam``); ``render`` is its rig of one.  The coarse stage
 rasterizes the raw pool; the fine stage routes the raw attributes
 through the deformation field first, once for the rig, then applies the
-activations.  Optional passes: the DINO feature head rendered as colours
+activations and adds the deltas a field gives in activated space
+(Deformable 3D Gaussians' scale and rotation deltas).  Optional passes: the DINO feature head rendered as colours
 (positions detached, as in JAX) over its camera's RGB-pass binning, and
 the dynamic/static decomposition, which re-renders the pool masked by
 |dx| > mean — alive-mask variations of the fixed-capacity pool, which
@@ -28,7 +29,7 @@ import torch
 
 from s3gaussian_tpu_torch.config import PipelineParams, RasterConfig
 from s3gaussian_tpu_torch.data.cameras import Camera
-from s3gaussian_tpu_torch.models.deformation import DeformationField
+from s3gaussian_tpu_torch.models.fields import Field
 from s3gaussian_tpu_torch.models.pool import GaussianPool
 from s3gaussian_tpu_torch.ops.compact import (candidates, expand_by_rank,
                                               take_compact)
@@ -47,11 +48,12 @@ def make_settings(camera: Camera, bg: torch.Tensor,
         campos=camera.campos)
 
 
-def _attributes(pool: GaussianPool, deform: Optional[DeformationField],
+def _attributes(pool: GaussianPool, deform: Optional[Field],
                 time: torch.Tensor, aabb: Optional[torch.Tensor], stage: str):
     """The attributes of ``pool`` (the whole pool or the culled working
     set) at ``time`` as the rasterizer takes them: raw in the coarse
-    stage, through the deformation field in the fine one, then activated.
+    stage, through the deformation field in the fine one, then activated,
+    and the field's deltas in activated space added where it gives them.
     (xyz, scales, rotations, opacity [N], shs, the field's DeformOut or
     None)."""
     out = None
@@ -69,9 +71,13 @@ def _attributes(pool: GaussianPool, deform: Optional[DeformationField],
                                                out.shs)
     else:
         raise NotImplementedError(stage)
-    attrs = (xyz_f, torch.exp(scales_f),
-             rot_f / torch.linalg.norm(rot_f, dim=-1, keepdim=True),
-             torch.sigmoid(op_f)[:, 0], shs_f)
+    scales_a = torch.exp(scales_f)
+    rot_a = rot_f / torch.linalg.norm(rot_f, dim=-1, keepdim=True)
+    if out is not None and out.d_scales is not None:
+        scales_a = scales_a + out.d_scales
+    if out is not None and out.d_rotations is not None:
+        rot_a = rot_a + out.d_rotations
+    attrs = (xyz_f, scales_a, rot_a, torch.sigmoid(op_f)[:, 0], shs_f)
     if out is None:
         return attrs + (None,)
     *attrs, dx, feat, dshs = spans.grad_mark("field.bwd", *attrs, out.dx,
@@ -134,7 +140,7 @@ WORST = ("overflow_rect", "overflow_visible", "overflow_pairs")
 
 
 def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
-                    deform: Optional[DeformationField], pipe: PipelineParams,
+                    deform: Optional[Field], pipe: PipelineParams,
                     bg: torch.Tensor, aabb: Optional[torch.Tensor] = None,
                     active_sh_degree: int = 3, stage: str = "fine",
                     return_decomposition: bool = False,
@@ -261,7 +267,7 @@ def render_multicam(cameras: Sequence[Camera], pool: GaussianPool,
 
 
 def render(camera: Camera, pool: GaussianPool,
-           deform: Optional[DeformationField], pipe: PipelineParams,
+           deform: Optional[Field], pipe: PipelineParams,
            bg: torch.Tensor, aabb: Optional[torch.Tensor] = None,
            active_sh_degree: int = 3, stage: str = "fine",
            override_color: Optional[torch.Tensor] = None,

@@ -43,8 +43,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from s3gaussian_tpu_torch.config import (ModelHiddenParams, ModelParams,
-                                         extract_group)
+from s3gaussian_tpu_torch.config import (FieldParams, ModelHiddenParams,
+                                         ModelParams, extract_group)
 from s3gaussian_tpu_torch.device import configure_device
 from s3gaussian_tpu_torch.models.deformation import DeformationField
 from s3gaussian_tpu_torch.models.pool import create_from_pcd
@@ -65,8 +65,16 @@ def _field(hp: ModelHiddenParams, device) -> DeformationField:
 
 
 def _run_groups(cfg_args: str):
+    """(the args, ModelParams, ModelHiddenParams) of ``cfg_args``;
+    raises on a run whose field is not the hexplane field, the only one
+    an exchange file (the JAX package's state) can hold."""
     args = ast.literal_eval(cfg_args)
     ns = SimpleNamespace(**args)
+    kind = extract_group(FieldParams, ns).field_kind
+    if kind != "hexplane":
+        raise ValueError(f"the run trains a {kind} deformation field; an "
+                         f"exchange file holds the JAX package's state, "
+                         f"whose field is the hexplane field alone")
     return (args, extract_group(ModelParams, ns),
             extract_group(ModelHiddenParams, ns))
 

@@ -12,9 +12,9 @@ import sys
 from dataclasses import dataclass
 from types import SimpleNamespace
 
-from s3gaussian_tpu_torch.config import (ModelHiddenParams, ModelParams,
-                                         PipelineParams, RasterConfig,
-                                         extract_group)
+from s3gaussian_tpu_torch.config import (FieldParams, ModelHiddenParams,
+                                         ModelParams, PipelineParams,
+                                         RasterConfig, extract_group)
 from s3gaussian_tpu_torch.data.scene import Scene, load_scene
 from s3gaussian_tpu_torch.device import configure_device
 from s3gaussian_tpu_torch.train import checkpoints as ckpt
@@ -30,6 +30,7 @@ class RunConfig:
     hyper: ModelHiddenParams
     pipe: PipelineParams
     cfg: RasterConfig
+    field: FieldParams
 
 
 @dataclass
@@ -48,7 +49,8 @@ def read_cfg_args(model_path: str, source: str = "") -> RunConfig:
     run = RunConfig(args=args, model=extract_group(ModelParams, args),
                     hyper=extract_group(ModelHiddenParams, args),
                     pipe=extract_group(PipelineParams, args),
-                    cfg=extract_group(RasterConfig, args))
+                    cfg=extract_group(RasterConfig, args),
+                    field=extract_group(FieldParams, args))
     if source:
         run.model.source_path = os.path.abspath(source)
     return run
@@ -62,7 +64,8 @@ def load_trained(run: RunConfig, model_path: str, checkpoint: str = "",
     scene = load_scene(run.model, pool_capacity=run.model.pool_capacity
                        or None, device=dev)
     state = init_state(scene.pool, make_deformation(
-        run.hyper, getattr(run.args, "seed", 6666), dev), scene.aabb)
+        run.hyper, run.field, getattr(run.args, "seed", 6666), dev),
+        scene.aabb)
     if checkpoint:
         state, stage, it = ckpt.load_checkpoint(checkpoint, state)
     else:

@@ -8,7 +8,7 @@
   loss = L1(rgb)
        + λ_dx·mean|dx| + λ_dshs·mean|dshs|              (fine)
        + λ_depth·masked-L2(normalized depth)
-       + hexplane TV/time/L1 regs                       (fine)
+       + hexplane TV/time/L1 regs                       (fine, a grid)
        + λ_dssim·(1−SSIM)
        + λ_feat·L2(feat, dino_gt)                       (fine, feat_head)
 
@@ -50,7 +50,7 @@ from s3gaussian_tpu_torch.config import (ModelHiddenParams,
                                          RasterConfig)
 from s3gaussian_tpu_torch.data.cameras import Camera
 from s3gaussian_tpu_torch.models import hexplane as hx
-from s3gaussian_tpu_torch.models.deformation import DeformationField
+from s3gaussian_tpu_torch.models.fields import Field
 from s3gaussian_tpu_torch.models.pool import (GaussianPool, PoolStats,
                                               add_densification_stats,
                                               densify_and_prune,
@@ -68,7 +68,7 @@ from s3gaussian_tpu_torch.utils import spans
 @dataclass
 class TrainState:
     pool: GaussianPool
-    deform: DeformationField
+    deform: Field
     adam: AdamState
     stats: PoolStats
     step: torch.Tensor        # [] int32
@@ -76,14 +76,14 @@ class TrainState:
     nan_skips: torch.Tensor   # [] int32
 
 
-def param_tree(pool: GaussianPool, deform: DeformationField
+def param_tree(pool: GaussianPool, deform: Field
                ) -> Dict[str, Dict[str, torch.Tensor]]:
     """{"pool": pool.param_dict(), "deform": {name: parameter}}."""
     return {"pool": pool.param_dict(),
             "deform": dict(deform.named_parameters())}
 
 
-def init_state(pool: GaussianPool, deform: DeformationField,
+def init_state(pool: GaussianPool, deform: Field,
                aabb: torch.Tensor) -> TrainState:
     dev = pool.xyz.device
     return TrainState(pool=pool, deform=deform,
@@ -137,7 +137,7 @@ def lr_dict(step: torch.Tensor, opt: OptimizationParams,
     }
 
 
-def compute_loss_multicam(pool: GaussianPool, deform: DeformationField,
+def compute_loss_multicam(pool: GaussianPool, deform: Field,
                           tap: torch.Tensor, cameras: Sequence[Camera],
                           stage: str, active_sh_degree: int,
                           hp: ModelHiddenParams, opt: OptimizationParams,
@@ -166,7 +166,9 @@ def compute_loss_multicam(pool: GaussianPool, deform: DeformationField,
     metrics = {"l1": loss, "psnr": psnr(pkg["render"], gt)}
 
     # dx/dshs live on the render working set (the whole pool, or the
-    # culled candidates with cull_before_deform)
+    # culled candidates with cull_before_deform); the dshs and feature
+    # terms run where the field gives those outputs (Deformable 3D
+    # Gaussians' gives neither)
     w_alive = pkg["alive_work"]
     n_alive = torch.clamp(w_alive.sum(), min=1)
     if fine and not hp.no_dx and opt.lambda_dx != 0:
@@ -174,7 +176,8 @@ def compute_loss_multicam(pool: GaussianPool, deform: DeformationField,
                 / (n_alive * 3))
         loss = loss + opt.lambda_dx * dx_l
         metrics["dx"] = dx_l
-    if fine and not hp.no_dshs and opt.lambda_dshs != 0:
+    if (fine and not hp.no_dshs and opt.lambda_dshs != 0
+            and pkg["dshs"] is not None):
         dshs_l = (torch.where(w_alive[:, None, None], torch.abs(pkg["dshs"]),
                               0.0).sum() / (n_alive * 48))
         loss = loss + opt.lambda_dshs * dshs_l
@@ -182,7 +185,8 @@ def compute_loss_multicam(pool: GaussianPool, deform: DeformationField,
         dl = depth_loss(pkg["depth"], gt_depth, "l2")
         loss = loss + opt.lambda_depth * dl
         metrics["depth"] = dl
-    if fine and hp.time_smoothness_weight != 0:
+    # the hexplane regularisers, for a field that has a grid
+    if fine and hp.time_smoothness_weight != 0 and hasattr(deform, "grid"):
         reg = hx.compute_regulation(deform.grid, len(hp.multires),
                                     hp.time_smoothness_weight,
                                     hp.l1_time_planes, hp.plane_tv_weight)
@@ -192,7 +196,7 @@ def compute_loss_multicam(pool: GaussianPool, deform: DeformationField,
         s = ssim(pkg["render"], gt)
         loss = loss + opt.lambda_dssim * (1.0 - s)
         metrics["ssim"] = s
-    if want_feat:
+    if want_feat and "feat" in pkg:
         gt_feat = torch.stack([c.feat_map.permute(2, 0, 1) for c in cameras])
         fl = l2_loss(pkg["feat"], gt_feat) * opt.lambda_feat
         loss = loss + fl

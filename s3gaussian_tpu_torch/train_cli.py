@@ -61,15 +61,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from s3gaussian_tpu_torch.config import (ModelHiddenParams, ModelParams,
-                                         OptimizationParams, PipelineParams,
-                                         RasterConfig, add_group_args,
-                                         apply_config_file, extract_group)
+from s3gaussian_tpu_torch.config import (FieldParams, ModelHiddenParams,
+                                         ModelParams, OptimizationParams,
+                                         PipelineParams, RasterConfig,
+                                         add_group_args, apply_config_file,
+                                         extract_group)
 from s3gaussian_tpu_torch.data.cameras import write_cameras_json
 from s3gaussian_tpu_torch.data.scene import load_scene
 from s3gaussian_tpu_torch.device import configure_device
 from s3gaussian_tpu_torch.eval.video import do_evaluation
-from s3gaussian_tpu_torch.models.deformation import DeformationField
+from s3gaussian_tpu_torch.models.fields import Field, build_field
 from s3gaussian_tpu_torch.parallel.data_parallel import (
     parallel_train_step, parallel_train_step_multicam,
     parallel_train_steps_scan, parallel_train_steps_scan_multicam,
@@ -138,11 +139,12 @@ def visible_devices(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def make_deformation(hyper: ModelHiddenParams, seed: int,
-                     device: torch.device) -> DeformationField:
-    """The deformation field, its initial weights drawn from ``seed``."""
-    return DeformationField(hyper, torch.Generator().manual_seed(seed),
-                            device)
+def make_deformation(hyper: ModelHiddenParams, field: FieldParams, seed: int,
+                     device: torch.device) -> Field:
+    """The deformation field ``field`` names, its initial weights drawn
+    from ``seed``."""
+    return build_field(hyper, field, torch.Generator().manual_seed(seed),
+                       device)
 
 
 def parallel_refusal(batch_size: int, world: int,
@@ -194,6 +196,7 @@ def main(argv=None, device: str = "cuda"):
     add_group_args(parser, PipelineParams, "Pipeline Parameters")
     add_group_args(parser, ModelHiddenParams, "ModelHiddenParams")
     add_group_args(parser, RasterConfig, "Rasterizer")
+    add_group_args(parser, FieldParams, "Deformation field")
     parser.add_argument("--seed", type=int, default=6666)
     parser.add_argument("--expname", type=str, default="waymo")
     parser.add_argument("--configs", type=str, default="")
@@ -217,8 +220,9 @@ def main(argv=None, device: str = "cuda"):
     pipe = extract_group(PipelineParams, args)
     hyper = extract_group(ModelHiddenParams, args)
     cfg = extract_group(RasterConfig, args)
+    field = extract_group(FieldParams, args)
     if args.configs:
-        apply_config_file(args.configs, model, pipe, opt, hyper, cfg)
+        apply_config_file(args.configs, model, pipe, opt, hyper, cfg, field)
     # one process per device: the ranks of the process group are the
     # devices of a data-parallel run (a no-op (0, 1) without a group)
     rank, world = init_multihost(device=device)
@@ -253,7 +257,7 @@ def main(argv=None, device: str = "cuda"):
     os.makedirs(model.model_path, exist_ok=True)
     # cfg_args records the effective configuration, config file merged in
     dump = dict(vars(args))
-    for grp in (model, opt, pipe, hyper, cfg):
+    for grp in (model, opt, pipe, hyper, cfg, field):
         for fld in dataclasses.fields(grp):
             if not fld.name.startswith("_"):
                 dump[fld.name] = getattr(grp, fld.name)
@@ -275,7 +279,8 @@ def main(argv=None, device: str = "cuda"):
 
     # every rank starts from rank 0's state (a no-op for one process)
     state = replicate_state(init_state(
-        scene.pool, make_deformation(hyper, args.seed, dev), scene.aabb))
+        scene.pool, make_deformation(hyper, field, args.seed, dev),
+        scene.aabb))
     bg = torch.tensor([1.0, 1.0, 1.0] if model.white_background
                       else [0.0, 0.0, 0.0], device=dev)
     if cfg.max_visible == 0:

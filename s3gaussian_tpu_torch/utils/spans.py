@@ -29,7 +29,10 @@ buffer, past the top-level slots.  The deformation field marks two
 (``INNER_NAMES``): ``field.mlp.fwd``, from the hexplane query's return to
 the next top-level mark, and ``field.mlp.bwd``, from the opening of
 ``field.bwd`` (the field's outputs have their gradients) to the moment
-the hexplane's output has its gradient.
+the hexplane's output has its gradient.  Deformable 3D Gaussians' field
+(``models/deform_mlp.py``) opens ``field.mlp.fwd`` after its input
+encoding and closes ``field.mlp.bwd`` when its first Linear's output
+has its gradient.
 
 At the step's end, on the device, ``span_ns`` [len(NAMES)] int64 sums the
 stamp differences of the spans by name (0 for a name the step did not

@@ -46,7 +46,12 @@ def _deform_leaves(field: DeformationField
                    ) -> List[Tuple[str, Tuple[Any, ...], bool]]:
     """(parameter name, JAX pytree path, transpose) for every parameter of
     the field.  JAX computes x @ w + b with w [in, out]; nn.Linear holds
-    [out, in], hence the transpose."""
+    [out, in], hence the transpose.  Raises on a field of another kind:
+    the JAX package's tree holds the hexplane field alone."""
+    if field.kind != "hexplane":
+        raise ValueError(f"a {field.kind} deformation field has no JAX "
+                         f"counterpart: the JAX package's state holds the "
+                         f"hexplane field alone")
     names = {id(p): n for n, p in field.named_parameters()}
     leaves = [(names[id(p)], ("grid", k), False)
               for k, p in field.grid.items()]

@@ -33,6 +33,7 @@ a model path without a checkpoint refuses.
 
 import ast
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -44,6 +45,7 @@ import pytest
 import torch
 
 from s3gaussian_tpu_torch import train_cli
+from s3gaussian_tpu_torch.config import FieldParams
 from s3gaussian_tpu_torch.train import trainer as ttr
 
 import torch_cli_pairs
@@ -149,13 +151,15 @@ def test_cfg_args_fields_match(runs):
         want = ast.literal_eval(f.read())
     with open(os.path.join(tout, "cfg_args")) as f:
         got = ast.literal_eval(f.read())
-    # the TPU-only fields
+    # the TPU-only fields; the port's own group (FieldParams) at its
+    # default, the hexplane field the JAX run trains
     assert set(want) - set(got) == {
         "remat_deform", "max_pairs_per_tile", "use_pallas", "sort_bf16",
         "sort_hier", "multicam_serialize", "multicam_scan"}
-    assert set(got) <= set(want)
+    port_only = dataclasses.asdict(FieldParams())
+    assert {k: got[k] for k in set(got) - set(want)} == port_only
     for k, v in got.items():
-        if k != "model_path":
+        if k != "model_path" and k not in port_only:
             assert v == want[k], k
     assert got["net_width"] == 16            # the config file was merged
 

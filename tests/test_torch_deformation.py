@@ -155,8 +155,10 @@ def test_apply_deformation_matches_jax(variant):
         got = field(*[t(a) for a in (xyz, scales, rot, opac, shs, tval)],
                     aabb=t(AABB))
     atol = 2e-2 if hp.grid_compute_bf16 else 1e-5
+    # the port's activated-space deltas, which the JAX field has not,
+    # are None for the hexplane field
     for name in tdef.DeformOut._fields:
-        w, g = getattr(want, name), getattr(got, name)
+        w, g = getattr(want, name, None), getattr(got, name)
         assert (w is None) == (g is None), name
         if w is not None:
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=atol,

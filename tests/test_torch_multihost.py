@@ -105,7 +105,7 @@ def rank_main(rank, store, workdir):
     with np.load(os.path.join(workdir, "field.npz")) as npz:
         weights = {k: torch.from_numpy(v) for k, v in npz.items()}
 
-    def field_from_jax(hyper, seed, device):
+    def field_from_jax(hyper, field, seed, device):
         field = DeformationField(hyper, torch.Generator().manual_seed(seed),
                                  device)
         field.load_state_dict(weights)
@@ -134,7 +134,8 @@ def runs(tmp_path_factory):
     model path, [report of each rank])."""
     workdir = tmp_path_factory.mktemp("multihost")
     make_fixture(str(workdir / "clip"), n_frames=3)
-    field = same_field(THP(**tiny_config.ModelHiddenParams), SEED, "cpu")
+    field = same_field(THP(**tiny_config.ModelHiddenParams), None, SEED,
+                       "cpu")
     np.savez(workdir / "field.npz",
              **{k: v.numpy() for k, v in field.state_dict().items()})
     ranks = Ranks(os.path.abspath(__file__), workdir,

@@ -17,6 +17,7 @@ deformation field of both stages; after it the split noise differs
 
 import ast
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -34,6 +35,7 @@ from s3gaussian_tpu.config import apply_config_file as j_apply_config_file
 from s3gaussian_tpu.eval import lpips_jax
 from s3gaussian_tpu.models.deformation import init_deformation
 from s3gaussian_tpu_torch import train_cli
+from s3gaussian_tpu_torch.config import FieldParams
 from s3gaussian_tpu_torch.weights import deformation_from_numpy
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -94,7 +96,7 @@ def same_field(config):
     """A ``make_deformation`` for the port that gives the JAX CLI's
     initial field, built from ``config``'s ModelHiddenParams (with
     ``no_dx`` the JAX field has no position head, nor the port's)."""
-    def make(hyper, seed, device):
+    def make(hyper, field, seed, device):
         field = jax.tree_util.tree_map(np.asarray, init_deformation(
             jax.random.PRNGKey(seed), jax_hyper(config)))
         return deformation_from_numpy(field, hyper, device)
@@ -209,11 +211,15 @@ def check_cameras(jout, tout):
 
 def check_cfg_args(jout, tout, paths=("model_path",)):
     """The port's cfg_args fields equal the JAX CLI's but the ``paths``
-    of each run's own; the JAX CLI has the TPU-only fields besides."""
+    of each run's own; the JAX CLI has the TPU-only fields besides, the
+    port its own group (FieldParams) at its default, the hexplane field
+    the JAX run trains."""
     jcfg, tcfg = read_cfg_args(jout), read_cfg_args(tout)
-    assert set(jcfg) - set(tcfg) == TPU_ONLY and set(tcfg) <= set(jcfg)
+    port_only = dataclasses.asdict(FieldParams())
+    assert set(jcfg) - set(tcfg) == TPU_ONLY
+    assert {k: tcfg[k] for k in set(tcfg) - set(jcfg)} == port_only
     for k, v in tcfg.items():
-        if k not in paths:
+        if k not in paths and k not in port_only:
             assert v == jcfg[k], k
     return tcfg
 
