@@ -47,6 +47,14 @@ last line):
      rows and over the rest, a backward repeated bit for bit; each kernel
      timed in a captured graph beside its DRAM bound (the bytes its work
      requires) and the plain path's forward and backward;
+  3e. the pair-key kernel (``csrc/bin_keys.cu``: a binning's key
+     emission) against the plain emission (``ops/binning.py``'s, forced)
+     on the same card tensors at waymo_perf's 1,171,456 render slots of
+     2,000,000 rows, 4x4 rects, the tight rect on: the keys bit for bit in
+     the 32-bit and the int64 layout, and the 32-bit sort's slots, tile
+     ranges, pair count and overflow equal to the int64 sort's; the kernel
+     timed in a captured graph beside its DRAM bound and the plain
+     emission;
   4. the render path: the headline scene of ``bench.py`` (200,000
      LiDAR-like Gaussians in a 204,800 pool, SH degree 3, default
      deformation field) rendered at 640x960 through ``render()`` for 3 rig
@@ -356,6 +364,15 @@ PROJ_REPLACES = {"project_fwd": "s3gaussian_tpu/ops/project.py:79",
 # coefficients' and the position's gradients (204)
 PROJ_ROW_BYTES = {"project_fwd": 98, "project_bwd": 112, "sh_fwd": 216,
                   "sh_bwd": 420}
+# phase 3e: the pair-key kernel at waymo_perf's size: rows, render slots
+# (its max_visible), rect cap; the tile sizes of the two key layouts (at
+# H×W, 2,400 tiles of 16 take the 32-bit key, 9,600 of 8 the int64 one)
+BIN_ROWS, BIN_SLOTS, BIN_RECT = 2_000_000, 1_171_456, 4
+BIN_TILES = {"32-bit": 16, "int64": 8}
+# bytes a render slot the emission's work requires: it reads the slot's
+# pool index (8), visibility (1), rect (16), xy (8), conic (12), depth (4)
+# and opacity (4), and writes its rect's 4-byte keys
+BIN_SLOT_BYTES = 53 + 4 * BIN_RECT * BIN_RECT
 LPIPS_FIXTURE = os.path.join(REPO, "tests", "fixtures",
                              "lpips_alex_fixture.npz")
 # the CLI's device memory after a step may not grow across the fine stage
@@ -998,6 +1015,7 @@ def project_phase(torch, su, card):
     each kernel's fields: its outputs' max abs error and that error as a
     share of max|plain|."""
     from s3gaussian_tpu_torch.ops import project as pj
+    from s3gaussian_tpu_torch.ops import tile_kernels as tk
 
     dev = su.bg.device
     n = PROJ_ROWS
@@ -1077,7 +1095,7 @@ def project_phase(torch, su, card):
     del got, want, vis
 
     # each kernel alone, on the inputs as the wrappers pass them
-    quats_k = pj._aligned(quats)
+    quats_k = tk.aligned(quats)
     dims = (W, H, su.cfg.tile_x, su.cfg.tile_y)
     ms = {}
     ms["project_fwd"] = graph_ms(torch, lambda: pj.project_fwd(
@@ -1132,6 +1150,129 @@ def project_phase(torch, su, card):
               for k in PROJ_OUTPUTS["project_bwd"] + PROJ_OUTPUTS["sh_bwd"])
           + "; the same bits on repeat", flush=True)
     del means, scales, quats, quats_k, opac, alive, tap, shs, cots
+    torch.cuda.empty_cache()
+    return out
+
+
+def binkeys_phase(torch, su, card):
+    """Phase 3e: the pair-key kernel (``csrc/bin_keys.cu``, through
+    ``ops/binning.py::make_pair_keys``) against the plain emission
+    (``kernel_emits`` forced False) on the same card tensors: BIN_ROWS
+    rows spread as phase 3d's (a tenth behind the camera, a tenth not
+    alive, oversized rects), BIN_SLOTS render slots, a BIN_RECT² rect, the
+    tight rect on.  The keys bit for bit in both layouts (BIN_TILES); in
+    the 32-bit one, the binning's sorted slots, tile ranges, pair count
+    and overflow equal to those of the plain keys widened to the int64 key
+    and sorted on 64 bits, at a pair budget of half the pairs.  Times
+    the kernel alone and the emission both ways (``graph_ms``), the plain
+    emission's own time being its ``make_pair_keys`` less the shared
+    compaction, beside the kernel's DRAM bound (BIN_SLOT_BYTES a render
+    slot).  Returns the kernel's fields."""
+    from s3gaussian_tpu_torch.ops import binning as tbin
+    from s3gaussian_tpu_torch.ops import project as pj
+    from s3gaussian_tpu_torch.ops.rasterizer import bin_pairs
+
+    dev = su.bg.device
+    n, nr, r = BIN_ROWS, BIN_SLOTS, BIN_RECT
+    cam = rig_camera(torch, dev, 0.0, 0.4, H, W)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    z = rand(n) * 60.0 - 6.0
+    means = torch.stack([(rand(n) * 2.4 - 1.2) * z.abs() * 0.6,
+                         (rand(n) * 2.4 - 1.2) * z.abs() * 0.6, z], 1)
+    scales = torch.exp(rand(n, 3) * 4.0 - 5.0)
+    quats = torch.randn((n, 4), generator=gen, device=dev)
+    opac = rand(n) * 0.98 + 0.01
+    alive = rand(n) > 0.1
+
+    def keys(proj, grid, tile, kernel):
+        if kernel:
+            return tbin.make_pair_keys(proj, *grid, nr, r, r, tile, tile,
+                                       opacities=opac)
+        emits = tbin.kernel_emits
+        tbin.kernel_emits = lambda device: False
+        try:
+            return tbin.make_pair_keys(proj, *grid, nr, r, r, tile, tile,
+                                       opacities=opac)
+        finally:
+            tbin.kernel_emits = emits
+
+    out = None
+    for layout, tile in BIN_TILES.items():
+        proj = pj.project(means, scales, quats, cam.world_view, cam.full_proj,
+                          cam.tanfovx, cam.tanfovy, W, H, tile, tile,
+                          alive=alive, opacities=opac)
+        grid = (-(-W // tile), -(-H // tile))
+        n_tiles = grid[0] * grid[1]
+        got, want = keys(proj, grid, tile, True), keys(proj, grid, tile, False)
+        torch.cuda.synchronize()
+        check(got.by_kernel and not want.by_kernel,
+              f"3e [{layout}]: the emission took the wrong path")
+        check(got.keys.dtype == (torch.int64 if tbin.two_key(n_tiles)
+                                 else torch.int32)
+              and got.keys.dtype == want.keys.dtype,
+              f"3e [{layout}]: keys {got.keys.dtype}, plain "
+              f"{want.keys.dtype} at {n_tiles} tiles")
+        check(torch.equal(got.keys, want.keys), f"3e [{layout}]: "
+              f"{int((got.keys != want.keys).sum())} of {got.keys.numel()} "
+              f"keys differ from the plain emission's")
+        if got.keys.dtype == torch.int32:
+            n_valid = int((got.keys != tbin.INVALID_KEY - tbin.KEY_BIAS)
+                          .sum())
+        else:
+            n_valid = int(((got.keys >> 32) != tbin.INVALID_TILE_TWO_KEY)
+                          .sum())
+        print(f"3e [{layout}]: {got.keys.numel()} keys of {nr} render slots "
+              f"({int(proj.visible.sum())} of {n} rows visible, "
+              f"{int(got.overflow_rect)} rects clamped), {n_valid} pairs, "
+              f"{n_tiles} tiles: equal to the plain emission's", flush=True)
+        if layout != "32-bit":
+            del proj, got, want
+            continue
+
+        # a budget of half the pairs, so that its cut is checked too
+        bp = n_valid // 2
+        b = bin_pairs(got, n_tiles, bp)
+        wide = want.keys.to(torch.int64) + tbin.KEY_BIAS
+        sorted_key, sorted_slot = torch.sort(wide, stable=True)
+        starts, n_pairs, overflow = tbin.tile_ranges(sorted_key >> 20,
+                                                     n_tiles, bp)
+        torch.cuda.synchronize()
+        for name, a, w in (("sorted slots", b.slots,
+                            sorted_slot[:b.slots.shape[0]]),
+                           ("tile starts", b.tile_starts, starts),
+                           ("pair count", b.n_pairs, n_pairs),
+                           ("overflow", b.overflow_pairs, overflow)):
+            check(torch.equal(a, w), f"3e: the 32-bit binning's {name} "
+                  f"differ from the int64 sort's")
+        print(f"3e: the 32-bit sort's slots, {n_tiles + 1} tile starts, "
+              f"{int(b.n_pairs)} pairs and {int(b.overflow_pairs)} overflow "
+              f"equal to the int64 sort's", flush=True)
+        sel, vis = got.sel, got.sel_visible
+        del b, sorted_key, sorted_slot, starts, want
+
+        ms = graph_ms(torch, lambda: tbin.emit_keys(
+            proj, sel, vis, *grid, r, r, tile, tile, opac))
+        with_kernel = graph_ms(torch, lambda: keys(proj, grid, tile, True))
+        with_plain = graph_ms(torch, lambda: keys(proj, grid, tile, False))
+        sort32 = graph_ms(torch, lambda: torch.sort(got.keys, stable=True))
+        sort64 = graph_ms(torch, lambda: torch.sort(wide, stable=True))
+        plain = with_plain - (with_kernel - ms)
+        n_bytes = nr * BIN_SLOT_BYTES
+        bnd = bound(n_bytes, 0)
+        print(f"bin_keys vs plain: {nr} render slots, kernel {ms:.4f} ms, "
+              f"DRAM bound {n_bytes} bytes -> {bnd[0]:.4f} ms "
+              f"({bnd[0] / ms:.3f} of it), plain emission {plain:.4f} ms; "
+              f"make_pair_keys with the kernel {with_kernel:.4f} ms, plain "
+              f"{with_plain:.4f} ms; stable sort of the keys as int32 "
+              f"{sort32:.4f} ms, as int64 {sort64:.4f} ms ({card})",
+              flush=True)
+        out = {"ms": ms, "plain_ms": plain, "bound": bnd, "max_err": 0.0}
+        del proj, got, wide, sel, vis
+    del means, scales, quats, opac, alive
     torch.cuda.empty_cache()
     return out
 
@@ -3778,14 +3919,16 @@ def graph_phase(torch, su, state, card):
         # a step's marks; one field evaluation a step: a forward and a
         # backward a scale
         # the projection a rasterize pass (and a camera of the cull), the
-        # SH colour a camera
+        # SH colour a camera, the pair keys a binning (a pass that did not
+        # take another's)
         passes = int(aux_g["raster_passes"].reshape(-1)[0])
+        bins = passes - int(aux_g["bins_reused"].reshape(-1)[0])
         culls = b if su.cfg.cull_before_deform else 0
         for kernel, want in (("span_mark", n_marks), ("hexplane_fwd", 1),
                              ("hexplane_bwd", len(su.hp.multires)),
                              ("project_fwd", passes + culls),
                              ("project_bwd", passes), ("sh_fwd", b),
-                             ("sh_bwd", b)):
+                             ("sh_bwd", b), ("bin_keys", bins)):
             check(cap[kernel] == want and got[kernel] == (n + 1) * want,
                   f"{what}: {cap[kernel]} {kernel} launches captured and "
                   f"{got[kernel]} launched for {n} replays and a warm-up "
@@ -4109,6 +4252,8 @@ def main(only=None) -> int:
     hexk = hexplane_phase(torch, su, card)
     # 3d. the projection and SH kernels vs plain at the same row count
     projk = project_phase(torch, su, card)
+    # 3e. the pair-key kernel vs the plain emission at waymo_perf's size
+    bink = binkeys_phase(torch, su, card)
 
     # 4. the render path through the user entry points, launches counted
     # (the segment-sum launches from here on, but for the comparisons of
@@ -4261,7 +4406,8 @@ def main(only=None) -> int:
 
     seg_compare = tk.launches["segment_sum"]
     mark_compare = tk.launches["span_mark"]
-    kernel_compare = {k: tk.launches[k] for k in HEX_KERNELS + PROJ_KERNELS}
+    kernel_compare = {k: tk.launches[k]
+                      for k in HEX_KERNELS + PROJ_KERNELS + ("bin_keys",)}
     # 6. small scene: GPU vs CPU (plain compositors): render + train step,
     # with the field made anew from its seed, then the renders with the
     # field phase 5 trained in place
@@ -4463,13 +4609,14 @@ def main(only=None) -> int:
     mark_main = tk.launches["span_mark"] - mark_compare
     check(mark_main > 0, "the path launched no span-mark kernel")
     kernel_main = {k: tk.launches[k] - n for k, n in kernel_compare.items()}
-    check(all(kernel_main.values()), f"the path's hexplane, projection and "
-          f"SH launches {kernel_main}: a kernel never launched")
+    check(all(kernel_main.values()), f"the path's hexplane, projection, SH "
+          f"and pair-key launches {kernel_main}: a kernel never launched")
     print(f"segment-sum launches over this process's phases of the path: "
           f"{seg_main}; span-mark launches: {mark_main}; hexplane launches: "
           f"forward {kernel_main['hexplane_fwd']}, backward "
           f"{kernel_main['hexplane_bwd']}; " + ", ".join(
-              f"{k} {kernel_main[k]}" for k in PROJ_KERNELS), flush=True)
+              f"{k} {kernel_main[k]}" for k in PROJ_KERNELS + ("bin_keys",)),
+          flush=True)
     print(f"smoke run: {time.time() - T_START:.1f} s", flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -4553,6 +4700,20 @@ def main(only=None) -> int:
             "bound_by": d["bound"][1],
             "library_ms": None,
         })
+    kernels.append({
+        "name": "bin_keys",
+        "route": "cuda",
+        "source": "s3gaussian_tpu_torch/csrc/bin_keys.cu",
+        # no Pallas kernel: make_pair_keys' emission XLA fuses
+        "replaces": "s3gaussian_tpu/ops/binning.py:145",
+        "launches": kernel_main["bin_keys"],
+        "max_abs_err": bink["max_err"],
+        "ms": bink["ms"],
+        "plain_ms": bink["plain_ms"],
+        "bound_ms": bink["bound"][0],
+        "bound_by": bink["bound"][1],
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
 """Tile binning (port of ``s3gaussian_tpu/ops/binning.py``): visible
 compaction, bounded pair-key emission, one stable key sort, tile ranges.
 
-Keys are int64.  Below 4,095 tiles a key is
-``(tile << 20) | (float_bits(depth) >> 12)`` — bit-equal to the JAX
-package's uint32 key, invalid pairs included (``0xFFFFFFFF``).  From
-4,095 tiles on it is ``(tile << 32) | float_bits(depth)``, the order of
-JAX's two-key (tile, depth) sort; invalid pairs take tile ``0x7FFFFFFF``,
-above every valid tile, and keep their depth bits so that they tie-break
-exactly as JAX's invalid tile ``0xFFFFFFFF`` does.  ``torch.sort`` runs
-with ``stable=True`` because ``lax.sort`` is stable.
+Below 4,095 tiles a key is the JAX package's uint32 key
+``(tile << 20) | (float_bits(depth) >> 12)``, invalid pairs
+``0xFFFFFFFF``, held as int32 with the sign bit flipped (the uint32 value
+less 2^31), so that the signed order is JAX's unsigned order and the sort
+runs on 32 bits.  From 4,095 tiles on a key is int64
+``(tile << 32) | float_bits(depth)``, the order of JAX's two-key
+(tile, depth) sort; invalid pairs take tile ``0x7FFFFFFF``, above every
+valid tile, and keep their depth bits so that they tie-break exactly as
+JAX's invalid tile ``0xFFFFFFFF`` does.  ``torch.sort`` runs with
+``stable=True`` because ``lax.sort`` is stable.
+
+On CUDA tensors single-class emission is one launch of
+``csrc/bin_keys.cu`` (``emit_keys``), whose keys are this module's plain
+keys bit for bit; CPU tensors and two-class emission take the plain code.
 
 Two-class emission (``big_budget > 0``) gives every render slot a 2×2
 core and the first ``big_budget`` big Gaussians their periphery, in a
@@ -23,11 +29,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from s3gaussian_tpu_torch.ops import tile_kernels as tk
 from s3gaussian_tpu_torch.ops.project import ProjectedGaussians
 
 DEPTH_BITS = 20
 INVALID_KEY = 0xFFFFFFFF              # single-key sentinel (JAX's uint32 max)
 INVALID_TILE_TWO_KEY = 0x7FFFFFFF     # two-key sentinel tile
+KEY_BIAS = 1 << 31        # a single key's int32 is its uint32 value less this
 
 
 def two_key(n_tiles: int) -> bool:
@@ -38,7 +46,9 @@ def two_key(n_tiles: int) -> bool:
 class PairKeys(NamedTuple):
     sel: torch.Tensor              # [NR] int64 pool index of each render slot
     sel_visible: torch.Tensor      # [NR] bool render slot is a real visible gaussian
-    keys: torch.Tensor             # [M] int64 unsorted pair keys (slot order)
+    # [M] unsorted pair keys (slot order): int32 below 4,095 tiles, else
+    # int64
+    keys: torch.Tensor
     two_key: bool
     n_visible: torch.Tensor        # [] visible gaussians (pre NR-cap)
     overflow_rect: torch.Tensor    # [] gaussians whose rect was clamped
@@ -52,6 +62,7 @@ class PairKeys(NamedTuple):
     # [N] bool the pool visibility that ordered the compaction: the pair
     # stream's backward expands render slots back to pool rows by its rank
     visible: Optional[torch.Tensor] = None
+    by_kernel: bool = False        # csrc/bin_keys.cu emitted the keys
 
 
 def float_bits(x: torch.Tensor) -> torch.Tensor:
@@ -63,6 +74,12 @@ def float_bits(x: torch.Tensor) -> torch.Tensor:
 def depth_key_bits(depth: torch.Tensor) -> torch.Tensor:
     """Top DEPTH_BITS bits of the float32 depth — monotone for depth > 0."""
     return float_bits(depth) >> (32 - DEPTH_BITS)
+
+
+def kernel_emits(device: torch.device) -> bool:
+    """Whether single-class emission on ``device`` is one launch of
+    ``csrc/bin_keys.cu`` (CUDA) rather than the plain code (CPU)."""
+    return device.type == "cuda"
 
 
 def _quad_min_box(ca, cb, cc, bx0, bx1, by0, by1):
@@ -155,11 +172,21 @@ def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
         overflow_visible = torch.clamp(n_visible - nr, min=0)
 
     rect = proj.tiles_rect[sel]
-    xy = proj.xy[sel].detach()
     x0, y0, x1, y1 = rect.unbind(-1)
     w = x1 - x0
     h = y1 - y0
     overflow_rect = (((w > rect_w) | (h > rect_h)) & sel_visible).sum()
+    single = big_budget <= 0 or rect_cap <= 4 or rect_w < 2 or rect_h < 2
+    if single and kernel_emits(dev):
+        keys = emit_keys(proj, sel, sel_visible, grid_x, grid_y, rect_w,
+                         rect_h, tile_x, tile_y, opacities)
+        return PairKeys(sel=sel, sel_visible=sel_visible, keys=keys,
+                        two_key=use_two_key, n_visible=n_visible,
+                        overflow_rect=overflow_rect,
+                        overflow_visible=overflow_visible, visible=visible,
+                        by_kernel=True)
+
+    xy = proj.xy[sel].detach()
 
     # centre-clamp oversized rects (the tile of the projected mean stays in)
     cx = torch.clamp(torch.div(xy[:, 0], tile_x, rounding_mode="floor")
@@ -195,7 +222,7 @@ def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
 
     dfull = float_bits(proj.depth[sel].detach())
     extras = {}
-    if big_budget <= 0 or rect_cap <= 4 or rect_w < 2 or rect_h < 2:
+    if single:
         r = torch.arange(rect_cap, dtype=torch.int32, device=dev)[None, :]
         dx, dy = r % rect_w, r // rect_w
         tile, valid = emit(x0c, y0c, dx, dy,
@@ -244,9 +271,10 @@ def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
         tile = torch.where(valid, tile, INVALID_TILE_TWO_KEY)
         keys = (tile << 32) | dslot
     else:
-        keys = torch.where(valid,
-                           (tile << DEPTH_BITS) | (dslot >> (32 - DEPTH_BITS)),
-                           INVALID_KEY)
+        keys = (torch.where(valid,
+                            (tile << DEPTH_BITS)
+                            | (dslot >> (32 - DEPTH_BITS)),
+                            INVALID_KEY) - KEY_BIAS).to(torch.int32)
     return PairKeys(sel=sel, sel_visible=sel_visible, keys=keys.reshape(-1),
                     two_key=use_two_key, n_visible=n_visible,
                     overflow_rect=overflow_rect,
@@ -254,11 +282,70 @@ def make_pair_keys(proj: ProjectedGaussians, grid_x: int, grid_y: int,
                     **extras)
 
 
+def emit_keys(proj: ProjectedGaussians, sel: torch.Tensor,
+              sel_visible: torch.Tensor, grid_x: int, grid_y: int,
+              rect_w: int, rect_h: int, tile_x: int = 16, tile_y: int = 16,
+              opacities: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-class emission's keys of the render slots ``sel`` in one
+    launch of ``csrc/bin_keys.cu`` (counted under ``"bin_keys"``): [NR ·
+    rect_w · rect_h], int32 below 4,095 tiles, else int64, the plain
+    path's keys bit for bit; with ``opacities`` the exact ellipse–tile
+    cut.  Raises (ValueError, TypeError) on what the kernel does not
+    take: CPU tensors; other than sel [NR] int64 and sel_visible [NR]
+    bool, of the projection tiles_rect [N, 4] int32, xy [N, 2], depth [N]
+    and conic [N, 3] float32, opacities [N] or [N, 1] float32, all on one
+    device; a grid, rect or tile below 1."""
+    n, dev = proj.depth.shape[0], sel.device
+    if sel.dim() != 1:
+        raise ValueError(f"sel must be [NR], got {tuple(sel.shape)}")
+    want = {"sel": (sel, (sel.shape[0],), torch.int64),
+            "sel_visible": (sel_visible, (sel.shape[0],), torch.bool),
+            "tiles_rect": (proj.tiles_rect, (n, 4), torch.int32),
+            "xy": (proj.xy, (n, 2), torch.float32),
+            "depth": (proj.depth, (n,), torch.float32),
+            "conic": (proj.conic, (n, 3), torch.float32)}
+    if opacities is not None:
+        want["opacities"] = (opacities.reshape(-1), (n,), torch.float32)
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, sel on {dev}")
+    if min(grid_x, grid_y, rect_w, rect_h, tile_x, tile_y) < 1:
+        raise ValueError(f"grid {grid_x}x{grid_y}, rect {rect_w}x{rect_h}, "
+                         f"tile {tile_x}x{tile_y}: each must be at least 1")
+    if dev.type != "cuda":
+        raise ValueError(f"emit_keys launches csrc/bin_keys.cu: CUDA "
+                         f"tensors only, got {dev}")
+    use_two_key = two_key(grid_x * grid_y)
+    keys = torch.empty(sel.shape[0] * rect_w * rect_h,
+                       dtype=torch.int64 if use_two_key else torch.int32,
+                       device=dev)
+    cut = opacities is not None
+    tk.launch("bin_keys", tk._load("bin_keys").bin_keys, sel.contiguous(),
+              sel_visible.contiguous(), tk.aligned(proj.tiles_rect),
+              proj.xy.detach().contiguous(),
+              proj.depth.detach().contiguous(),
+              proj.conic.detach().contiguous() if cut else None,
+              opacities.detach().reshape(-1).contiguous() if cut else None,
+              sel.shape[0], rect_w, rect_h, tile_x, tile_y, grid_x,
+              int(use_two_key), keys)
+    return keys
+
+
 def sort_pairs(pk: PairKeys):
-    """One stable sort of the pair keys.  Returns (sorted_tile [M] int64,
+    """One stable sort of the pair keys, on 32 bits below 4,095 tiles.
+    Returns (sorted_tile [M], int32 below 4,095 tiles else int64,
     sorted_slot [M] int64 emission slot of each sorted pair)."""
     sorted_key, sorted_slot = torch.sort(pk.keys, stable=True)
-    return sorted_key >> (32 if pk.two_key else DEPTH_BITS), sorted_slot
+    if pk.two_key:
+        return sorted_key >> 32, sorted_slot
+    # the int32 key is the uint32 key less 2^31: so is its tile less 2^11
+    return ((sorted_key >> DEPTH_BITS) + (KEY_BIAS >> DEPTH_BITS),
+            sorted_slot)
 
 
 def tile_ranges(sorted_tile: torch.Tensor, n_tiles: int, bp: int):

@@ -205,12 +205,6 @@ def sh_to_color_plain(shs: torch.Tensor, means3d: torch.Tensor,
 SH_COEFFS = (1, 4, 9, 16)     # the coefficient counts of degrees 0-3
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte address (the kernels' vector loads)."""
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
-
-
 def _fov(tan: float | torch.Tensor, size: int):
     """A tan(fov/2) as the kernels take it: (0-d tensor or None, focal,
     clamp bound); a Python float's focal and bound computed here in
@@ -316,19 +310,6 @@ def check_sh(shs: torch.Tensor, means3d: torch.Tensor, campos: torch.Tensor,
                          f"for {shs.shape[1]} coefficients")
 
 
-def _launch(name: str, fn, *args) -> None:
-    """Call the C entry point ``fn`` on the current stream, a tensor
-    argument passed as its address, None as a null pointer; counted under
-    ``name``."""
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    tk._count(name)
-
-
 def project_fwd(means3d, scales, rotations, tap, view, proj, tanfovx,
                 tanfovy, alive, opacities, dims,
                 radius_margin) -> ProjectedGaussians:
@@ -347,10 +328,10 @@ def project_fwd(means3d, scales, rotations, tap, view, proj, tanfovx,
     tx, fx, lx = _fov(tanfovx, width)
     ty, fy, ly = _fov(tanfovy, height)
     lib = tk._load("project")
-    _launch("project_fwd", lib.project_fwd, means3d, scales, rotations,
-            tap, alive, opacities, view, proj, tx, ty, fx,
-            fy, lx, ly, n, width, height, tile_x, tile_y,
-            float(radius_margin), *out)
+    tk.launch("project_fwd", lib.project_fwd, means3d, scales, rotations,
+              tap, alive, opacities, view, proj, tx, ty, fx,
+              fy, lx, ly, n, width, height, tile_x, tile_y,
+              float(radius_margin), *out)
     return out
 
 
@@ -367,11 +348,11 @@ def project_bwd(means3d, scales, rotations, view, proj, tanfovx, tanfovy,
     tx, fx, lx = _fov(tanfovx, width)
     ty, fy, ly = _fov(tanfovy, height)
     lib = tk._load("project")
-    _launch("project_bwd", lib.project_bwd, means3d, scales, rotations, view,
-            proj, tx, ty, fx, fy, lx, ly, n, width, height,
-            *(None if g is None else g.contiguous()
-              for g in (g_xy, g_depth, g_conic)),
-            *outs)
+    tk.launch("project_bwd", lib.project_bwd, means3d, scales, rotations,
+              view, proj, tx, ty, fx, fy, lx, ly, n, width, height,
+              *(None if g is None else g.contiguous()
+                for g in (g_xy, g_depth, g_conic)),
+              *outs)
     return tuple(outs)
 
 
@@ -437,7 +418,7 @@ def project(means3d: torch.Tensor, scales: torch.Tensor,
     op = (None if opacities is None
           else opacities.detach().reshape(-1).contiguous())
     return ProjectedGaussians(*_Project.apply(
-        means3d.contiguous(), scales.contiguous(), _aligned(rotations),
+        means3d.contiguous(), scales.contiguous(), tk.aligned(rotations),
         None if mean2d_tap is None else mean2d_tap.contiguous(),
         view.contiguous(), proj.contiguous(), tanfovx, tanfovy,
         None if alive is None else alive.contiguous(), op,
@@ -451,8 +432,8 @@ def sh_fwd(shs, means3d, campos, degree) -> torch.Tensor:
     out = torch.empty((n, 3), dtype=torch.float32, device=shs.device)
     tensor = isinstance(degree, torch.Tensor)
     lib = tk._load("project")
-    _launch("sh_fwd", lib.sh_fwd, shs, shs.shape[1], means3d, campos, n,
-            0 if tensor else int(degree), degree if tensor else None, out)
+    tk.launch("sh_fwd", lib.sh_fwd, shs, shs.shape[1], means3d, campos, n,
+              0 if tensor else int(degree), degree if tensor else None, out)
     return out
 
 
@@ -465,9 +446,9 @@ def sh_bwd(shs, means3d, campos, degree, g, want_means=True):
                if want_means else None)
     tensor = isinstance(degree, torch.Tensor)
     lib = tk._load("project")
-    _launch("sh_bwd", lib.sh_bwd, shs, shs.shape[1], means3d, campos, n,
-            0 if tensor else int(degree), degree if tensor else None,
-            g.contiguous(), d_shs, d_means)
+    tk.launch("sh_bwd", lib.sh_bwd, shs, shs.shape[1], means3d, campos, n,
+              0 if tensor else int(degree), degree if tensor else None,
+              g.contiguous(), d_shs, d_means)
     return d_shs, d_means
 
 
@@ -507,5 +488,5 @@ def sh_to_color(shs: torch.Tensor, means3d: torch.Tensor,
     check_sh(shs, means3d, campos, active_degree)
     if isinstance(active_degree, torch.Tensor):
         active_degree = active_degree.to(torch.int32)
-    return _ShColor.apply(_aligned(shs), means3d.contiguous(),
+    return _ShColor.apply(tk.aligned(shs), means3d.contiguous(),
                           campos.contiguous(), active_degree)

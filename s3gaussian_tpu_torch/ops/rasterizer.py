@@ -5,10 +5,11 @@ Dataflow, in three stages that ``chip_smoke.py`` also times one by one:
 
   ``project_and_pack``: covariance and projection (``project``) → SH
   colours → [16, N] feature rows (on the card the kernels of
-  ``csrc/project.cu``); ``pair_keys`` on detached inputs;
-  ``bin_pairs``: ONE stable (key, slot) sort → tile ranges, the view's
-  ``Binning``; ``gather_stream``: ONE gather of the 10 data rows at each
-  sorted slot's column;
+  ``csrc/project.cu``); ``pair_keys`` on detached inputs (on the card
+  one launch of ``csrc/bin_keys.cu`` after the compaction);
+  ``bin_pairs``: ONE stable (key, slot) sort (32-bit keys below 4,095
+  tiles) → tile ranges, the view's ``Binning``; ``gather_stream``: ONE
+  gather of the 10 data rows at each sorted slot's column;
   ``tile_kernels.CompositeTiles``: the CUDA compositors, forward and
   backward (plain PyTorch on CPU tensors) → ``unpack_tiles`` →
   ``color = rgb + final_T·bg``.
@@ -79,9 +80,10 @@ def grid_dims(settings: RasterSettings, cfg: RasterConfig) -> tuple[int, int]:
 class Binning(NamedTuple):
     """A view's binning, detached: what the pair stream's gather and its
     backward read.  ``pk`` is the pair keys without their ``keys`` buffer
-    (freed after the sort), ``n_slots`` the emitted slots M, ``slots``
-    [bp] int64 the emission slot of each sorted pair, cut to the pair
-    budget; then the tile ranges [T+1] int32, ``n_pairs`` and
+    (int32 below 4,095 tiles, int64 from there, ``ops/binning.py``; freed
+    after the sort), ``n_slots`` the emitted slots M, ``slots`` [bp]
+    int64 the emission slot of each sorted pair, cut to the pair budget;
+    then the tile ranges [T+1] int32, ``n_pairs`` and
     ``overflow_pairs``.  A pass whose projection and alive mask equal the
     pass that binned can take it in place of its own."""
 
@@ -253,8 +255,9 @@ def rasterize(settings: RasterSettings, means3d: torch.Tensor,
         settings, means3d, opacities, scales, rotations, shs, colors_precomp,
         cov3d_precomp, alive, cfg, mean2d_tap)
     if binning is None:
-        binning = bin_pairs(pair_keys(settings, proj, opacities, cfg),
-                            grid_x * grid_y, cfg.pair_budget)
+        pk = pair_keys(settings, proj, opacities, cfg)
+        spans.count(bins_kernel=int(pk.by_kernel))
+        binning = bin_pairs(pk, grid_x * grid_y, cfg.pair_budget)
     stream = gather_stream(feat_pool, binning, cfg.rect_cap)
     (stream,) = spans.grad_mark("bin.bwd", stream)
     spans.mark("composite.fwd")

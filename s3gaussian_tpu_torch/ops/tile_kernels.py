@@ -4,8 +4,9 @@ function around them (port of ``s3gaussian_tpu/ops/tile_kernels.py``:
 ``composite_bwd_pallas`` → ``csrc/composite_bwd.cu``), and the build and
 launch counts of the port's compute kernels (also ``csrc/segment_sum.cu``,
 wrapped by ``ops/segsum.py``, ``csrc/hexplane.cu``, wrapped by
-``ops/gridsample.py``, and ``csrc/project.cu``, wrapped by
-``ops/project.py``), and the launch of the step's stage mark
+``ops/gridsample.py``, ``csrc/project.cu``, wrapped by
+``ops/project.py``, and ``csrc/bin_keys.cu``, wrapped by
+``ops/binning.py``), and the launch of the step's stage mark
 ``csrc/span_mark.cu`` (``utils/spans.py``).
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
@@ -42,7 +43,8 @@ SOURCES = {"composite_fwd": _PKG / "csrc" / "composite_fwd.cu",
            "segment_sum": _PKG / "csrc" / "segment_sum.cu",
            "span_mark": _PKG / "csrc" / "span_mark.cu",
            "hexplane": _PKG / "csrc" / "hexplane.cu",
-           "project": _PKG / "csrc" / "project.cu"}
+           "project": _PKG / "csrc" / "project.cu",
+           "bin_keys": _PKG / "csrc" / "bin_keys.cu"}
 # the C entry point of each library, where it is not the source's name
 ENTRY = {"span_mark": "span_mark_at", "hexplane": "hexplane_fwd",
          "project": "project_fwd"}
@@ -58,7 +60,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ``count_replay``.  Both tables are updated in place, never rebound.
 KERNELS = ("composite_fwd", "composite_bwd", "segment_sum", "span_mark",
            "hexplane_fwd", "hexplane_bwd", "project_fwd", "project_bwd",
-           "sh_fwd", "sh_bwd")
+           "sh_fwd", "sh_bwd", "bin_keys")
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 captured: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -204,6 +206,10 @@ def _load(name: str) -> ctypes.CDLL:
             lib.sh_bwd.argtypes = [*sh, ptr, ptr, ptr, ptr]
             for f in (lib.project_bwd, lib.sh_fwd, lib.sh_bwd):
                 f.restype = ctypes.c_int
+        elif name == "bin_keys":
+            # sel, sel_visible, rect, xy, depth, conic, opac, nr, rect w/h,
+            # tile x/y, grid_x, two_key, keys, stream
+            fn.argtypes = [*[ptr] * 7, i64, *[i32] * 6, ptr, ptr]
         elif name == "composite_fwd":
             fn.argtypes = [ptr, i64, ptr, ptr, *dims, ptr]
         elif name == "composite_bwd":
@@ -219,6 +225,25 @@ def _count(kernel: str) -> None:
     """One launch of ``kernel`` (a name of KERNELS)."""
     table = captured if torch.cuda.is_current_stream_capturing() else launches
     table[kernel] += 1
+
+
+def launch(name: str, fn, *args) -> None:
+    """Call the C entry point ``fn`` on the current stream, a tensor
+    argument passed as its address, None as a null pointer; counted under
+    ``name``."""
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _count(name)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte address (the kernels' vector loads)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def count_replay(counts: Mapping[str, int]) -> None:

@@ -40,11 +40,12 @@ mark), ``inner_ns`` [len(INNER_NAMES)] int64 those of the inner spans;
 beside them ``field_rows``, the rows entering the deformation field
 (the pool's capacity, or the culled working set's size), and
 ``visible_rows``, those of them visible in at least one camera of the
-step (both 0 in the coarse stage, which runs no field); and two tallies
-(``TALLIES``) of the rasterizer: ``raster_passes``, the step's
-``rasterize`` calls, and ``bins_reused``, those of them that took another
-pass's binning.  The six are top-level keys of the step's aux and of its
-``small_aux``.
+step (both 0 in the coarse stage, which runs no field); and three
+tallies (``TALLIES``) of the rasterizer: ``raster_passes``, the step's
+``rasterize`` calls, ``bins_reused``, those of them that took another
+pass's binning, and ``bins_kernel``, those that binned their own with
+keys emitted by ``csrc/bin_keys.cu``.  The seven are top-level keys of
+the step's aux and of its ``small_aux``.
 
 **The traced window.**  ``trainer.scan_steps`` keeps a block's stacked
 counters (``keep``) when a profiler is on at dispatch, and only then;
@@ -74,7 +75,8 @@ NAMES = ("cull", "field.fwd", "project.fwd", "bin.fwd", "composite.fwd",
          "field.bwd", "allreduce", "update")
 # stretches inside a top-level span, each timed by one more stamp
 INNER_NAMES = ("field.mlp.fwd", "field.mlp.bwd")
-TALLIES = ("raster_passes", "bins_reused")   # summed over a step's counts
+# summed over a step's counts
+TALLIES = ("raster_passes", "bins_reused", "bins_kernel")
 KEYS = ("span_ns", "inner_ns", "field_rows", "visible_rows") + TALLIES
 MAX_MARKS = 512          # top-level stamps a step, slots [0, MAX_MARKS)
 MAX_INNER = 64           # inner stamps a step, the slots after them

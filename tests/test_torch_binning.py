@@ -51,7 +51,10 @@ def test_pair_keys_sort_ranges_bit_equal(n, max_visible, w, h, tile, rect):
         tile_j[tile_j == 0xFFFFFFFF] = tbin.INVALID_TILE_TWO_KEY
         want_keys = (tile_j << 32) | np.asarray(pk.depth_u32).astype(np.int64)
     else:
-        want_keys = np.asarray(pk.keys).astype(np.int64)
+        # the port holds JAX's uint32 key as int32, less 2^31
+        want_keys = (np.asarray(pk.keys).astype(np.int64)
+                     - tbin.KEY_BIAS).astype(np.int32)
+    assert tpk.keys.dtype == (torch.int64 if pk.two_key else torch.int32)
     np.testing.assert_array_equal(tpk.keys.numpy(), want_keys)
     np.testing.assert_array_equal(tpk.sel.numpy(), np.asarray(pk.sel))
     np.testing.assert_array_equal(tpk.sel_visible.numpy(),

@@ -109,6 +109,8 @@ def test_step_marks_every_stage(setup, rig, cull):
     n_cams = len(cams) if rig else 1
     assert (int(aux["raster_passes"]), int(aux["bins_reused"])) == (
         n_cams, 0)
+    # CPU tensors bin on the plain path: no key-emission kernel
+    assert int(aux["bins_kernel"]) == 0
     assert set(spans.KEYS) <= set(tr.small_aux(aux))
 
 
@@ -131,7 +133,8 @@ def test_top_level_names_are_unchanged():
         "field.bwd", "allreduce", "update")
     assert spans.INNER_NAMES == ("field.mlp.fwd", "field.mlp.bwd")
     assert spans.KEYS == ("span_ns", "inner_ns", "field_rows",
-                          "visible_rows", "raster_passes", "bins_reused")
+                          "visible_rows", "raster_passes", "bins_reused",
+                          "bins_kernel")
 
 
 @pytest.mark.parametrize("cull", [False, True])

@@ -95,7 +95,7 @@ def test_launches_are_counted_by_kernel(monkeypatch, zeroed_counts,
 def test_replays_add_what_their_graph_captured(zeroed_counts):
     graph = {"composite_fwd": 3, "composite_bwd": 3, "span_mark": 12,
              "hexplane_fwd": 1, "hexplane_bwd": 4, "project_fwd": 9,
-             "project_bwd": 6, "sh_fwd": 3, "sh_bwd": 3}
+             "project_bwd": 6, "sh_fwd": 3, "sh_bwd": 3, "bin_keys": 3}
     for _ in range(2):
         tk.count_replay(graph)
     assert tk.launches == {**{k: 2 * n for k, n in graph.items()},

@@ -83,8 +83,11 @@ def test_make_pair_keys_matches_jax(seed, scale_mul, budget, max_visible):
                               big_budget=nb)
     nr = min(max_visible, 60)
     assert tpk.keys.shape[0] == 4 * nr + (RECT * RECT - 4) * nb
-    np.testing.assert_array_equal(tpk.keys.numpy(),
-                                  np.asarray(pk.keys).astype(np.int64))
+    # the port holds JAX's uint32 key as int32, less 2^31
+    np.testing.assert_array_equal(
+        tpk.keys.numpy(),
+        (np.asarray(pk.keys).astype(np.int64) - tbin.KEY_BIAS).astype(
+            np.int32))
     for k in ("sel", "sel_visible", "big_sel", "big_granted", "big_rank"):
         np.testing.assert_array_equal(getattr(tpk, k).numpy(),
                                       np.asarray(getattr(pk, k)), err_msg=k)
